@@ -1,0 +1,33 @@
+"""The PyTorch port stands alone: it imports torch and never jax."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_import_leaves_jax_out():
+    # a fresh interpreter: this process already imported jax (conftest)
+    code = ("import sys, asset_asrl_torch as ast; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m.startswith('jaxlib') "
+            "or m.startswith('asset_asrl_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_jax_import_in_sources():
+    pat = re.compile(r"^\s*(import\s+(jax|jaxlib|asset_asrl_tpu)\b|"
+                     r"from\s+(jax|jaxlib|asset_asrl_tpu)\b)", re.M)
+    files = sorted((ROOT / "asset_asrl_torch").rglob("*.py"))
+    assert files
+    offenders = [str(p) for p in files if pat.search(p.read_text())]
+    assert not offenders, offenders
