@@ -2,15 +2,19 @@
 PyTorch versions.
 
 K1, `gj_inverse`: batched unpivoted Gauss-Jordan inverse + pivot sequence
-(`csrc/gj_inverse.cu`).  It replaces the Pallas kernel
+(`csrc/gj_inverse.cu`), for any block width: blocks up to `MAX_W` wide go
+through the narrow kernel, wider ones (the dense border of a multi-phase
+KKT) through the wide kernel.  It replaces the Pallas kernel
 `asset_asrl_tpu/Solvers/pallas_kernels.py: batched_gj_inverse` and, on the
 f64 main path, the XLA loop `kkt_block._inv_gj_pivots`.
 
 The kernel is compiled at first use with `nvcc` (sm_90a) into a shared
 library with a plain C interface, keyed by a hash of its source, under
 `asset_asrl_torch/_build/`, and loaded with ctypes.  A CUDA tensor always
-goes through the kernel; a CPU tensor takes `gj_inverse_ref`, the plain
-PyTorch version (the tests run on the CPU).
+goes through a kernel or raises; a CPU tensor takes `gj_inverse_ref`, the
+plain PyTorch version (the tests run on the CPU).  `gj_inverse.launches`
+counts launches of the narrow kernel, `gj_inverse.wide_launches` those of
+the wide one.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "gj_inverse.cu")
 _BUILD = os.path.join(_PKG, "_build")
-MAX_W = 64
+MAX_W = 64          # widest block of the narrow kernel
 _GUARD = {torch.float64: 1e-300, torch.float32: 1e-30}
 _lib = None
 
@@ -58,7 +62,8 @@ def build():
              "-o", tmp, _SRC], check=True)
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
-    for name in ("gj_inverse_f64", "gj_inverse_f32"):
+    for name in ("gj_inverse_f64", "gj_inverse_f32", "gj_inverse_wide_f64",
+                 "gj_inverse_wide_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -91,8 +96,9 @@ def gj_inverse_ref(D):
 def gj_inverse(D):
     """Batched Gauss-Jordan inverse + pivots of a (K, W, W) f64/f32 tensor.
 
-    CUDA tensor: launches the K1 kernel (one CTA per block) on the current
-    stream.  CPU tensor: `gj_inverse_ref`."""
+    CUDA tensor: launches K1 (one CTA per block) on the current stream,
+    the narrow kernel for W <= MAX_W and the wide kernel above.  CPU
+    tensor: `gj_inverse_ref`."""
     if D.ndim != 3 or D.shape[1] != D.shape[2]:
         raise ValueError(f"gj_inverse: expected (K, W, W), got "
                          f"{tuple(D.shape)}")
@@ -100,8 +106,8 @@ def gj_inverse(D):
         raise ValueError(f"gj_inverse: dtype {D.dtype} not supported "
                          "(float64 or float32)")
     K, W, _ = D.shape
-    if not 1 <= W <= MAX_W:
-        raise ValueError(f"gj_inverse: block width {W} outside 1..{MAX_W}")
+    if W < 1:
+        raise ValueError(f"gj_inverse: block width {W} < 1")
     if D.device.type == "cpu":
         return gj_inverse_ref(D)
     if D.device.type != "cuda":
@@ -113,8 +119,12 @@ def gj_inverse(D):
     pivs = torch.empty((K, W), dtype=D.dtype, device=D.device)
     if K == 0:
         return Dinv, pivs
-    fn = lib.gj_inverse_f64 if D.dtype == torch.float64 \
-        else lib.gj_inverse_f32
+    wide = W > MAX_W
+    f64 = D.dtype == torch.float64
+    if wide:
+        fn = lib.gj_inverse_wide_f64 if f64 else lib.gj_inverse_wide_f32
+    else:
+        fn = lib.gj_inverse_f64 if f64 else lib.gj_inverse_f32
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(D.data_ptr(), Dinv.data_ptr(), pivs.data_ptr(), K, W,
@@ -122,8 +132,12 @@ def gj_inverse(D):
     if err != 0:
         raise RuntimeError(f"gj_inverse: CUDA launch failed with error "
                            f"{err}")
-    gj_inverse.launches += 1
+    if wide:
+        gj_inverse.wide_launches += 1
+    else:
+        gj_inverse.launches += 1
     return Dinv, pivs
 
 
 gj_inverse.launches = 0
+gj_inverse.wide_launches = 0

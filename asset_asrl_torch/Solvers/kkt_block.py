@@ -544,7 +544,10 @@ def _grad_plan(fams, n, uvar_macro):
         bc = np.where(uniform & bcol[0])[0] if napps else \
             np.zeros(0, np.int64)
         keep = np.ones(nin, bool)
-        if len(bc) and napps and np.all(Vidx[:, bc] == Vidx[0:1, bc]):
+        # shared border columns must name distinct ids (one index_add call
+        # per family; a link may gather the same parameter twice)
+        if len(bc) and napps and np.all(Vidx[:, bc] == Vidx[0:1, bc]) \
+                and len(np.unique(Vidx[0, bc])) == len(bc):
             border.append((i, bc, Vidx[0, bc]))
             keep[bc] = False
         gpairs.append((src[:, keep].ravel(), Vidx[:, keep].ravel()))

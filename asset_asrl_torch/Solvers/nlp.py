@@ -86,6 +86,21 @@ def _family_hess(fun):
     return vmap(one)
 
 
+def _family_full(fun):
+    """Value, Jacobian and adjoint Hessian of every application in one
+    vmapped pass: (napps, nout), (napps, nout, nin), (napps, nin, nin)."""
+    def one(xloc, consts, lam):
+        def f(z):
+            out = torch.atleast_1d(fun(z, consts))
+            return out, out
+        jx, fx = jacfwd(f, has_aux=True)(xloc)
+
+        def agrad(z):
+            return vjp(lambda y: f(y)[0], z)[1](lam)[0]
+        return fx, jx, jacfwd(agrad)(xloc)
+    return vmap(one)
+
+
 class NonLinearProgram:
     """Assembles families into one NLP.
 
@@ -109,6 +124,14 @@ class NonLinearProgram:
         They are arguments of every evaluator (not baked into the
         closures), so they can change without rebuilding the program."""
         return self._consts
+
+    def bump_consts(self):
+        """Re-read the families' (host) consts after they were changed in
+        place (lock data, mesh fractions)."""
+        dev = self.device
+        self._consts = tuple(
+            tuple(config.tensor(np.array(f.consts), dev) for f in fams)
+            for fams in (self.objectives, self.eqcons, self.iqcons))
 
     # ----------------------------------------------------------- families
     def addObjective(self, f: IndexedFunction):
@@ -141,11 +164,10 @@ class NonLinearProgram:
         self._eq_rows, self.numEq = rows_of(self.eqcons)
         self._iq_rows, self.numIq = rows_of(self.iqcons)
         dev = self.device
-        self._consts = tuple(
-            tuple(config.tensor(f.consts, dev) for f in fams)
-            for fams in (self.objectives, self.eqcons, self.iqcons))
+        self.bump_consts()
         self._val = [(_family_value(f.fun), config.index(f.Vidx, dev))
                      for f in self.objectives + self.eqcons + self.iqcons]
+        self._dense = None          # eval_kkt's plan, built at first use
 
     # ------------------------------------------------------- value pass
     def eval_obj_cons(self, x):
@@ -166,6 +188,80 @@ class NonLinearProgram:
         cE = cat(vals[nobj:nobj + neq], self.numEq)
         cI = cat(vals[nobj + neq:], self.numIq)
         return obj, cE, cI
+
+    # ------------------------------------------------------- dense KKT pass
+    def _dense_plan(self):
+        """Gather tables that sum every family's Jacobian / adjoint-Hessian
+        values into the dense [gradf | H | JE | JI] arrays (targets repeat
+        wherever applications share variables, so no index_add)."""
+        from .kkt_block import _gather_rows
+        n, dev = self.numPrimal, self.device
+        mE, mI = self.numEq, self.numIq
+        offH, offE = n, n + n * n
+        offI = offE + mE * n
+        pairs, off = [], 0
+        fams = [(f, None, offH) for f in self.objectives] \
+            + [(f, r, offE) for f, r in zip(self.eqcons, self._eq_rows)] \
+            + [(f, r, offI) for f, r in zip(self.iqcons, self._iq_rows)]
+        for f, rows, joff in fams:
+            V = f.Vidx
+            nj = f.napps * f.nout * f.nin
+            if rows is None:      # objective: gradient entries
+                jt = np.broadcast_to(V[:, None, :], (f.napps, 1, f.nin))
+            else:
+                jt = joff + rows[:, :, None] * n + V[:, None, :]
+            pairs.append((off + np.arange(nj), jt.ravel()))
+            off += nj
+            nh = f.napps * f.nin * f.nin
+            pairs.append((off + np.arange(nh),
+                          (offH + V[:, :, None] * n + V[:, None, :]).ravel()))
+            off += nh
+        targets, table = _gather_rows(pairs, off)
+        full = [_family_full(f.fun) for f, _, _ in fams]
+        vidx = [config.index(f.Vidx, dev) for f, _, _ in fams]
+        rows = [None if r is None else config.index(r, dev)
+                for _, r, _ in fams]
+        self._dense = dict(targets=config.index(targets, dev),
+                           table=config.index(table, dev), size=offI + mI * n,
+                           full=full, vidx=vidx, rows=rows)
+        return self._dense
+
+    def eval_kkt(self, x, lamE, lamI, sigma):
+        """Dense KKT data: obj, gradf (scaled by sigma), cE, cI,
+        H = sigma grad^2 f + sum lam grad^2 c, JE, JI (the dense backend's
+        input)."""
+        p = self._dense or self._dense_plan()
+        n, mE, mI, dev = self.numPrimal, self.numEq, self.numIq, self.device
+        ocon, econ, icon = self.consts_dev()
+        nobj, neq = len(self.objectives), len(self.eqcons)
+        obj = torch.zeros((), dtype=config.DTYPE, device=dev)
+        vals, ce, ci = [], [], []
+        for i, cc in enumerate(ocon + econ + icon):
+            fam = (self.objectives + self.eqcons + self.iqcons)[i]
+            if i < nobj:
+                lam = torch.ones((fam.napps, 1), dtype=config.DTYPE,
+                                 device=dev)
+            else:
+                lam = (lamE if i < nobj + neq else lamI)[p["rows"][i]]
+            fx, jx, hx = p["full"][i](x[p["vidx"][i]], cc, lam)
+            if i < nobj:
+                obj = obj + torch.sum(fx)
+                jx, hx = sigma * jx, sigma * hx
+            else:
+                (ce if i < nobj + neq else ci).append(fx.reshape(-1))
+            vals += [jx.reshape(-1), hx.reshape(-1)]
+        buf = torch.cat(vals + [torch.zeros(1, dtype=config.DTYPE,
+                                            device=dev)])
+        out = torch.zeros(p["size"], dtype=config.DTYPE, device=dev)
+        out[p["targets"]] = buf[p["table"]].sum(-1)
+        gradf = out[:n]
+        H = out[n:n + n * n].reshape(n, n)
+        JE = out[n + n * n:n + n * n + mE * n].reshape(mE, n)
+        JI = out[n + n * n + mE * n:].reshape(mI, n)
+        empty = torch.zeros((0,), dtype=config.DTYPE, device=dev)
+        cE = torch.cat(ce) if ce else empty
+        cI = torch.cat(ci) if ci else empty
+        return obj, gradf, cE, cI, H, JE, JI
 
     def __repr__(self):
         return (f"<NonLinearProgram n={self.numPrimal} "

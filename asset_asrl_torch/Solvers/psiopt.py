@@ -8,8 +8,9 @@ NOTCONVERGED / DIVERGING).
 
 The KKT system is reduced by analytic slack elimination to the symmetric
 quasi-definite form [[H+dI, JE^T, JI^T], [JE, -gI, 0], [JI, 0, -(1/Sig+g)]]
-and factored by the block-tridiagonal backend (`kkt_block.BlockKKT`).  The
-per-iteration math runs on the problem's device; the loop, the ladder and
+and factored by the block-tridiagonal backend (`kkt_block.BlockKKT`), or by
+the dense backend (`kkt_dense.DenseKKT`) when the problem's structure does
+not fit the block one.  The per-iteration math runs on the problem's device; the loop, the ladder and
 the line search decisions run on the host, reading a few scalars per
 iteration.
 """
@@ -115,6 +116,8 @@ class PSIOPT:
         self.FastFactorAlg = True
         self.gammaE = 1.0e-10   # dual regularization (quasi-definiteness)
         self.gammaI = 1.0e-10
+        # start from the previous solve's multipliers and slacks
+        self.WarmStart = False
 
         # --- outputs ---
         self.LastObjVal = 0.0
@@ -130,8 +133,75 @@ class PSIOPT:
         self.nlp = nlp
         self.kkt = kkt
 
+    # ---------------------------------------------------------------- knobs
+    def set_OptLSMode(self, m):
+        self.OptLSMode = m
+
+    def set_SoeLSMode(self, m):
+        self.SoeLSMode = m
+
+    def set_OptBarMode(self, m):
+        self.OptBarMode = m
+
+    def set_SoeBarMode(self, m):
+        self.SoeBarMode = m
+
     def set_PrintLevel(self, p):
         self.PrintLevel = int(p)
+
+    def set_SoeMode(self, m):
+        m = str(m)
+        if m not in ("SOE", "OPTNO"):
+            raise ValueError("SoeMode must be SOE or OPTNO")
+        self.SoeMode = m
+
+    def set_PDStepStrategy(self, m):
+        m = str(m)
+        if m not in ("PrimSlackEq_Iq", "AllMinimum", "PrimSlack_EqIq",
+                     "MaxEq"):
+            raise ValueError(f"unknown PDStepStrategy {m}")
+        self.PDStepStrategy = m
+
+    def set_MaxIters(self, n):
+        self.MaxIters = int(n)
+
+    def set_MaxAccIters(self, n):
+        self.MaxAccIters = int(n)
+
+    def set_MaxLSIters(self, n):
+        self.MaxLSIters = int(n)
+
+    def set_tols(self, KKTtol=None, EContol=None, IContol=None, Bartol=None):
+        if KKTtol is not None:
+            self.KKTtol = abs(KKTtol)
+        if EContol is not None:
+            self.EContol = abs(EContol)
+        if IContol is not None:
+            self.IContol = abs(IContol)
+        if Bartol is not None:
+            self.Bartol = abs(Bartol)
+
+    def set_Acctols(self, k, e, i, b):
+        self.AccKKTtol, self.AccEContol = abs(k), abs(e)
+        self.AccIContol, self.AccBartol = abs(i), abs(b)
+
+    def set_KKTtol(self, v):
+        self.KKTtol = abs(v)
+
+    def set_EContol(self, v):
+        self.EContol = abs(v)
+
+    def set_IContol(self, v):
+        self.IContol = abs(v)
+
+    def set_Bartol(self, v):
+        self.Bartol = abs(v)
+
+    def set_BoundFraction(self, v):
+        self.BoundFraction = v
+
+    def set_deltaH(self, v):
+        self.deltaH = abs(v)
 
     def setNLP(self, nlp, kkt=None):
         self.nlp = nlp
@@ -164,19 +234,44 @@ class PSIOPT:
     def optimize(self, x):
         return self._run(x, ["OPT"])
 
+    def solve_optimize(self, x):
+        return self._run(x, ["SOE", "OPT"])
+
+    def solve_optimize_solve(self, x):
+        return self._run(x, ["SOE", "OPT", "SOE"])
+
+    def optimize_solve(self, x):
+        return self._run(x, ["OPT", "SOE"])
+
     # ------------------------------------------------------------------- run
     def _run(self, x0, schedule):
+        """Run the passes of `schedule` from x0.  LastIterNum counts the
+        iterations of all passes."""
         self.nlp.freeze()
         if self.kkt is None:
-            raise NotImplementedError(
-                "PSIOPT needs a block KKT backend; the dense KKT backend is "
-                "not ported yet (ROADMAP queue 1, item 6)")
+            # the structure did not fit the block backend (or the dense
+            # backend was asked for)
+            from .kkt_dense import DenseKKT
+            self.kkt = DenseKKT(self.nlp)
         t0 = time.perf_counter()
         self.LastIterNum = 0
         self.LastFuncTime = 0.0
         self.LastKKTTime = 0.0
         x, s, lamE, lamI = self._init_state(np.asarray(x0, np.float64),
                                             self.initMu)
+        nlp, dev = self.nlp, self.nlp.device
+        if self.WarmStart and self.LastEqLmults is not None \
+                and len(self.LastEqLmults) == nlp.numEq \
+                and self.LastIqLmults is not None \
+                and len(self.LastIqLmults) == nlp.numIq:
+            lamE = config.tensor(self.LastEqLmults, dev)
+            if nlp.numIq:
+                lamI = torch.clamp(config.tensor(self.LastIqLmults, dev),
+                                   min=1e-8)
+                if self.LastSlacks is not None \
+                        and len(self.LastSlacks) == nlp.numIq:
+                    s = torch.clamp(config.tensor(self.LastSlacks, dev),
+                                    min=self.BoundPush * 1e-3)
         flag = ConvergenceFlags.NOTCONVERGED
         for mode in schedule:
             if mode == "SOE":

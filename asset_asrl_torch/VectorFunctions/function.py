@@ -24,7 +24,9 @@ from .. import config
 
 __all__ = [
     "VectorFunction",
+    "ScalarFunction",
     "Arguments",
+    "ConditionalFunction",
     "Constant",
     "as_function",
     "stack",
@@ -101,6 +103,14 @@ def as_function(v, irows=None):
 
 def _1d(t):
     return torch.atleast_1d(t)
+
+
+def _cross(a, b):
+    """3-vector cross product, written out (the formula `jnp.cross`
+    evaluates)."""
+    return torch.stack([a[1] * b[2] - a[2] * b[1],
+                        a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
 
 
 class VectorFunction:
@@ -180,8 +190,19 @@ class VectorFunction:
         return tuple(t.cpu().numpy() for t in out)
 
     # ------------------------------------------------------------ composition
-    def eval(self, other):
-        """Composition self(other(x))."""
+    def eval(self, other, idx=None):
+        """Composition self(other(x)).
+
+        eval(n, [i0, i1, ...]) composes with an index selection from R^n
+        (the `f.eval(8, [0, 2, 6])` idiom)."""
+        if idx is not None:
+            n = int(other)
+            sel = config.index(np.asarray(list(idx), np.int64))
+            if sel.shape[0] != self._ir:
+                raise ValueError("eval(n, idx): len(idx) != IRows")
+            f = self._fn
+            return VectorFunction(lambda x: f(_1d(x)[sel]), n, self._orr,
+                                  name=f"{self._name}∘sel")
         other = _stack_arg(other)
         if other.ORows() != self._ir:
             raise ValueError(
@@ -209,9 +230,13 @@ class VectorFunction:
     def __getitem__(self, i):
         if isinstance(i, slice):
             start, stop, step = i.indices(self._orr)
-            if step != 1:
-                raise NotImplementedError("strided slices are not ported yet")
-            return self.segment(start, stop - start)
+            if step == 1:
+                return self.segment(start, stop - start)
+            f = self._fn
+            idx = config.index(list(range(start, stop, step)))
+            return VectorFunction(lambda x: _1d(f(x))[idx], self._ir,
+                                  int(idx.shape[0]),
+                                  name=f"{self._name}[slice]")
         return self.coeff(i)
 
     def segment(self, start, size):
@@ -228,6 +253,25 @@ class VectorFunction:
 
     def tail(self, size):
         return self.segment(self._orr - size, size)
+
+    # fixed-size conveniences (Segment2/Segment3 aliases)
+    def head2(self):
+        return self.segment(0, 2)
+
+    def head3(self):
+        return self.segment(0, 3)
+
+    def tail2(self):
+        return self.segment(self._orr - 2, 2)
+
+    def tail3(self):
+        return self.segment(self._orr - 3, 3)
+
+    def segment2(self, start):
+        return self.segment(start, 2)
+
+    def segment3(self, start):
+        return self.segment(start, 3)
 
     def tolist(self, pairs=None):
         """List of scalar element functions; with pairs, list of segments."""
@@ -307,11 +351,255 @@ class VectorFunction:
         return VectorFunction(lambda x: -_1d(f(x)),
                               self._ir, self._orr, name="neg")
 
+    def __abs__(self):
+        f = self._fn
+        return VectorFunction(lambda x: torch.abs(_1d(f(x))),
+                              self._ir, self._orr, name="abs")
+
+    # ------------------------------------------------------------- reductions
+    def sum(self):
+        f = self._fn
+        return VectorFunction(
+            lambda x: torch.sum(_1d(f(x)), dim=0, keepdim=True),
+            self._ir, 1, name="sum")
+
+    def dot(self, other):
+        other = _stack_arg(other, irows=self._ir)
+        if other.ORows() != self._orr:
+            raise ValueError("dot: output sizes differ")
+        f, g = self._fn, other._fn
+        return VectorFunction(
+            lambda x: torch.sum(_1d(f(x)) * _1d(g(x)), dim=0, keepdim=True),
+            self._ir, 1, name="dot")
+
+    def cross(self, other):
+        other = _stack_arg(other, irows=self._ir)
+        if self._orr != 3 or other.ORows() != 3:
+            raise ValueError("cross requires 3-vectors")
+        f, g = self._fn, other._fn
+        return VectorFunction(lambda x: _cross(_1d(f(x)), _1d(g(x))),
+                              self._ir, 3, name="cross")
+
+    def _cwise_pair(self, other, op, name):
+        if not isinstance(other, VectorFunction):
+            a = _const_array(other)
+            f = self._fn
+            return VectorFunction(lambda x: op(_1d(f(x)), a),
+                                  self._ir, self._orr, name=name)
+        other = _stack_arg(other, irows=self._ir)
+        if other.ORows() != self._orr:
+            raise ValueError(f"{name}: output sizes differ")
+        f, g = self._fn, other._fn
+        return VectorFunction(lambda x: op(_1d(f(x)), _1d(g(x))),
+                              self._ir, self._orr, name=name)
+
+    def cwiseProduct(self, other):
+        """Elementwise product with a same-size function or constant
+        vector."""
+        return self._cwise_pair(other, torch.mul, "cwiseProduct")
+
+    def cwiseQuotient(self, other):
+        """Elementwise quotient with a same-size function or constant
+        vector."""
+        return self._cwise_pair(other, torch.div, "cwiseQuotient")
+
+    def norm(self):
+        f = self._fn
+        return VectorFunction(
+            lambda x: _1d(torch.sqrt(torch.sum(torch.square(f(x))))),
+            self._ir, 1, name="norm")
+
+    def squared(self):
+        """Elementwise square."""
+        f = self._fn
+        return VectorFunction(lambda x: torch.square(_1d(f(x))),
+                              self._ir, self._orr, name="squared")
+
+    def squared_norm(self):
+        f = self._fn
+        return VectorFunction(
+            lambda x: _1d(torch.sum(torch.square(f(x)))),
+            self._ir, 1, name="squared_norm")
+
+    def inverse_norm(self):
+        f = self._fn
+        return VectorFunction(
+            lambda x: _1d(1.0 / torch.sqrt(torch.sum(torch.square(f(x))))),
+            self._ir, 1, name="inverse_norm")
+
+    def normalized(self):
+        f = self._fn
+
+        def impl(x):
+            v = _1d(f(x))
+            return v / torch.sqrt(torch.sum(torch.square(v)))
+        return VectorFunction(impl, self._ir, self._orr, name="normalized")
+
+    def normalized_power2(self):
+        """v / |v|^2"""
+        f = self._fn
+
+        def impl(x):
+            v = _1d(f(x))
+            return v / torch.sum(torch.square(v))
+        return VectorFunction(impl, self._ir, self._orr,
+                              name="normalized_power2")
+
+    def normalized_power3(self, offset=None, scale=None):
+        """v / |v|^3 (the two-body gravity shape); with (offset, scale):
+        scale * (v + offset) / |v + offset|^3."""
+        f = self._fn
+        off = None if offset is None else _const_array(offset)
+        sc = 1.0 if scale is None else float(scale)
+
+        def impl(x):
+            v = _1d(f(x))
+            if off is not None:
+                v = v + off
+            n2 = torch.sum(torch.square(v))
+            return sc * v / (n2 * torch.sqrt(n2))
+        return VectorFunction(impl, self._ir, self._orr,
+                              name="normalized_power3")
+
+    def normalized_power4(self):
+        f = self._fn
+
+        def impl(x):
+            v = _1d(f(x))
+            n2 = torch.sum(torch.square(v))
+            return v / (n2 * n2)
+        return VectorFunction(impl, self._ir, self._orr,
+                              name="normalized_power4")
+
+    def normalized_power5(self):
+        f = self._fn
+
+        def impl(x):
+            v = _1d(f(x))
+            n2 = torch.sum(torch.square(v))
+            return v / (n2 * n2 * torch.sqrt(n2))
+        return VectorFunction(impl, self._ir, self._orr,
+                              name="normalized_power5")
+
+    # --------------------------------------------------------------- padding
+    def padded_lower(self, n):
+        """Append n zeros below the output."""
+        n = int(n)
+        f = self._fn
+
+        def impl(x):
+            v = _1d(f(x))
+            return torch.cat([v, torch.zeros(n, dtype=config.DTYPE,
+                                             device=v.device)])
+        return VectorFunction(impl, self._ir, self._orr + n,
+                              name="padded_lower")
+
+    def padded_upper(self, n):
+        """Prepend n zeros above the output."""
+        n = int(n)
+        f = self._fn
+
+        def impl(x):
+            v = _1d(f(x))
+            return torch.cat([torch.zeros(n, dtype=config.DTYPE,
+                                          device=v.device), v])
+        return VectorFunction(impl, self._ir, self._orr + n,
+                              name="padded_upper")
+
     # -------------------------------------------------------------- cwise map
     def cwise(self, op, name="cwise"):
         f = self._fn
         return VectorFunction(lambda x: op(_1d(f(x))),
                               self._ir, self._orr, name=name)
+
+    # ASSET naming compatibility
+    def sf(self):
+        if self._orr != 1:
+            raise ValueError("sf(): output is not scalar")
+        return self
+
+    def vf(self):
+        return self
+
+    # --------------------------------------------------------- conditionals
+    def _compare(self, other, op, name):
+        if self._orr != 1:
+            raise ValueError("comparisons require scalar functions")
+        f = self._fn
+        if _is_numericlike(other) and not isinstance(other, VectorFunction):
+            c = float(np.asarray(other).ravel()[0])
+            return ConditionalFunction(lambda x: op(_1d(f(x))[0], c),
+                                       self._ir, name=name)
+        other = _stack_arg(other, irows=self._ir)
+        if other.ORows() != 1:
+            raise ValueError("comparisons require scalar functions")
+        g = other._fn
+        return ConditionalFunction(
+            lambda x: op(_1d(f(x))[0], _1d(g(x))[0]), self._ir, name=name)
+
+    def __lt__(self, other):
+        return self._compare(other, torch.lt, "lt")
+
+    def __le__(self, other):
+        return self._compare(other, torch.le, "le")
+
+    def __gt__(self, other):
+        return self._compare(other, torch.gt, "gt")
+
+    def __ge__(self, other):
+        return self._compare(other, torch.ge, "ge")
+
+
+class ScalarFunction(VectorFunction):
+    """Subclassable scalar-output function:
+    ``class obj(vf.ScalarFunction): def __init__(self): super().__init__(expr)``
+    wraps an existing scalar expression."""
+
+    def __init__(self, expr, irows=None, name=None):
+        if isinstance(expr, VectorFunction):
+            if expr.ORows() != 1:
+                raise ValueError("ScalarFunction requires a 1-output function")
+            super().__init__(expr._fn, expr.IRows(), 1,
+                             name=name or expr.name)
+        else:
+            if irows is None:
+                raise ValueError("ScalarFunction from a raw closure needs "
+                                 "irows")
+            super().__init__(expr, irows, 1, name=name or "ScalarFunction")
+
+
+class ConditionalFunction:
+    """Boolean-valued predicate over R^IRows, combinable with &, | and ~."""
+
+    def __init__(self, fn, irows, name="cond"):
+        self._fn = fn
+        self._ir = int(irows)
+        self._name = name
+
+    def IRows(self):
+        return self._ir
+
+    def trace(self, x):
+        return self._fn(x)
+
+    def compute(self, x):
+        x = config.tensor(np.asarray(x, np.float64).reshape(-1))
+        return bool(self._fn(x))
+
+    def __and__(self, other):
+        f, g = self._fn, other._fn
+        return ConditionalFunction(lambda x: torch.logical_and(f(x), g(x)),
+                                   self._ir, name="and")
+
+    def __or__(self, other):
+        f, g = self._fn, other._fn
+        return ConditionalFunction(lambda x: torch.logical_or(f(x), g(x)),
+                                   self._ir, name="or")
+
+    def __invert__(self):
+        f = self._fn
+        return ConditionalFunction(lambda x: torch.logical_not(f(x)),
+                                   self._ir, name="not")
 
 
 class Arguments(VectorFunction):

@@ -14,5 +14,6 @@ from . import config  # noqa: F401
 from . import VectorFunctions
 from . import Solvers
 from . import OptimalControl
+from . import Astro
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -25,8 +25,20 @@
 // JAX code); a zero or non-finite pivot is still written to `pivs`, so the
 // caller counts it as an inertia failure.
 //
-// Supported: 1 <= W <= 64 (a 64x64 f64 block plus scratch is 33 KB, under
-// the 48 KB of static/default dynamic shared memory).
+// Two kernels share these semantics:
+// * gj_inverse_kernel, for 1 <= W <= 64 (a 64x64 f64 block plus scratch is
+//   33 KB, under the 48 KB of default dynamic shared memory): one CTA of
+//   up to 1024 threads per block, the block resident in shared memory;
+// * gj_inverse_wide_kernel, for W > 64 (the dense border of a multi-phase
+//   KKT, whose width grows with the mesh): one CTA of kWideThreads threads
+//   per block.  While W*W + 2*W entries fit under the device's opt-in
+//   shared-memory limit (227 KB on H100: W <= 169 in f64, W <= 240 in
+//   f32) the block stays in dynamic shared memory, raised with
+//   cudaFuncSetAttribute; above that the elimination runs in place in the
+//   output buffer in global memory (L2-resident at these sizes), and only
+//   row j and column j are staged in shared memory.
+// The wide kernel is bound by one CTA per block: with the border's K = 1
+// most of the 132 SMs idle.
 
 #include <cuda_runtime.h>
 
@@ -83,6 +95,62 @@ __global__ void gj_inverse_kernel(const T* __restrict__ D,
   for (int e = threadIdx.x; e < WW; e += blockDim.x) dst[e] = M[e];
 }
 
+// One CTA per block.  kSmem: the W x W working block lives in dynamic
+// shared memory after the row/column scratch; otherwise it is the
+// block's slice of the output buffer, eliminated in place.  __syncthreads
+// orders the global-memory writes of one step before the reads of the
+// next within the CTA, as it does for shared memory.
+constexpr int kWideThreads = 512;
+
+template <typename T, bool kSmem>
+__global__ void __launch_bounds__(kWideThreads)
+gj_inverse_wide_kernel(const T* __restrict__ D, T* Dinv,
+                       T* __restrict__ pivs, int W, T guard) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* rowj = reinterpret_cast<T*>(smem_raw);
+  T* colj = rowj + W;
+
+  const long long blk = blockIdx.x;
+  const long long WW = (long long)W * W;
+  const T* src = D + blk * WW;
+  T* dst = Dinv + blk * WW;
+  T* M = kSmem ? colj + W : dst;
+  T* piv = pivs + blk * W;
+
+  for (long long e = threadIdx.x; e < WW; e += blockDim.x) M[e] = src[e];
+  __syncthreads();
+
+  for (int j = 0; j < W; ++j) {
+    for (int t = threadIdx.x; t < W; t += blockDim.x) {
+      rowj[t] = M[(long long)j * W + t];
+      colj[t] = M[(long long)t * W + j];
+    }
+    __syncthreads();
+    const T d = rowj[j];
+    if (threadIdx.x == 0) piv[j] = d;
+    const T dsafe = abs_val(d) > guard ? d : T(1);
+    const T dinv = T(1) / dsafe;
+    for (long long e = threadIdx.x; e < WW; e += blockDim.x) {
+      const int i = (int)(e / W);
+      const int k = (int)(e - (long long)i * W);
+      T v;
+      if (i == j) {
+        v = (k == j) ? dinv : rowj[k] / dsafe;
+      } else if (k == j) {
+        v = -(colj[i] * dinv);
+      } else {
+        v = M[e] - colj[i] * (rowj[k] / dsafe);
+      }
+      M[e] = v;
+    }
+    __syncthreads();
+  }
+
+  if (kSmem) {
+    for (long long e = threadIdx.x; e < WW; e += blockDim.x) dst[e] = M[e];
+  }
+}
+
 template <typename T>
 int launch(const T* D, T* Dinv, T* pivs, long long K, int W, T guard,
            void* stream) {
@@ -96,6 +164,35 @@ int launch(const T* D, T* Dinv, T* pivs, long long K, int W, T guard,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_wide(const T* D, T* Dinv, T* pivs, long long K, int W, T guard,
+                void* stream) {
+  if (K <= 0) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t scratch = sizeof(T) * (size_t)(2 * W);
+  const size_t whole = scratch + sizeof(T) * (size_t)W * (size_t)W;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (whole <= (size_t)optin) {
+    err = cudaFuncSetAttribute(gj_inverse_wide_kernel<T, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)whole);
+    if (err != cudaSuccess) return (int)err;
+    gj_inverse_wide_kernel<T, true><<<(unsigned int)K, kWideThreads, whole,
+                                      s>>>(D, Dinv, pivs, W, guard);
+  } else {
+    gj_inverse_wide_kernel<T, false><<<(unsigned int)K, kWideThreads,
+                                       scratch, s>>>(D, Dinv, pivs, W,
+                                                     guard);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int gj_inverse_f64(const double* D, double* Dinv, double* pivs,
@@ -106,4 +203,15 @@ extern "C" int gj_inverse_f64(const double* D, double* Dinv, double* pivs,
 extern "C" int gj_inverse_f32(const float* D, float* Dinv, float* pivs,
                               long long K, int W, void* stream) {
   return launch<float>(D, Dinv, pivs, K, W, 1e-30f, stream);
+}
+
+extern "C" int gj_inverse_wide_f64(const double* D, double* Dinv,
+                                   double* pivs, long long K, int W,
+                                   void* stream) {
+  return launch_wide<double>(D, Dinv, pivs, K, W, 1e-300, stream);
+}
+
+extern "C" int gj_inverse_wide_f32(const float* D, float* Dinv, float* pivs,
+                                   long long K, int W, void* stream) {
+  return launch_wide<float>(D, Dinv, pivs, K, W, 1e-30f, stream);
 }

@@ -13,7 +13,7 @@ import numpy as np
 from . import config
 
 __all__ = ["state_from_numpy", "blocks_from_numpy",
-           "problem_tables_from_numpy"]
+           "problem_tables_from_numpy", "iterate_of_problem"]
 
 
 def _f64(a, device):
@@ -38,3 +38,21 @@ def problem_tables_from_numpy(Vidx, consts, device=None):
     (float64) on `device`."""
     return config.index(np.array(Vidx, np.int64), device), \
         _f64(consts, device)
+
+
+def iterate_of_problem(problem, device=None):
+    """The last iterate of a solved phase or OptimalControlProblem of
+    either package, as float64 tensors (x, s, lamE, lamI) on `device`.
+
+    x is the problem's solver input (`makeSolverInput()` of a phase,
+    `_make_input()` of a multi-phase problem: every phase's variables,
+    static parameters included, then the link parameters); s, lamE and
+    lamI are the optimizer's `LastSlacks`, `LastEqLmults` and
+    `LastIqLmults`.  The two packages share the variable layout and the
+    row order, so the result can be factored by the port's KKT backend
+    for a side-by-side comparison of one factor/solve."""
+    make = getattr(problem, "_make_input", None) or problem.makeSolverInput
+    opt = problem.optimizer
+    return state_from_numpy(np.asarray(make()), np.asarray(opt.LastSlacks),
+                            np.asarray(opt.LastEqLmults),
+                            np.asarray(opt.LastIqLmults), device)
