@@ -13,9 +13,9 @@ couples a bounded window of consecutive nodes, so the reduced KKT
 
 Factorization is block cyclic reduction (BCR): log2(K) levels, each a
 batch of dense eliminations of the odd macro-blocks.  Every block inverse
-goes through kernel K1 (`cuda_kernels.gj_inverse`), whose pivot signs give
-the inertia (Sylvester's law over the congruence) that drives PSIOPT's
-perturbation ladder.
+goes through kernel K1 (`cuda_kernels.gj_inverse_inertia`), whose pivot
+signs give the inertia (Sylvester's law over the congruence) that drives
+PSIOPT's perturbation ladder.
 
 Assembly is deterministic: every KKT array (diag, lower, B, C) and every
 gradient (rd, J_I^T v) is a static gather table over one value buffer plus
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import config
-from .cuda_kernels import gj_inverse
+from .cuda_kernels import gj_inverse_inertia
 from .nlp import _family_hess, _family_valjac
 
 
@@ -348,13 +348,11 @@ def _inv_sym(D):
     solver's perturbation ladder engages; with delta/gamma regularization
     every macro block is quasi-definite and elimination is clean.  The
     count is a pure sign count (no relative pivot threshold), as on the
-    JAX package's CPU path."""
-    Dinv, pivs = gj_inverse(D.contiguous())
-    tiny = 1e-25 if D.dtype == torch.float32 else 1e-250
-    bad = ~torch.isfinite(pivs) | (pivs.abs() < tiny)
-    neg = ((pivs < 0) | bad).sum()
-    Dinv = torch.where(torch.isfinite(Dinv), Dinv, torch.zeros_like(Dinv))
-    return Dinv, neg
+    JAX package's CPU path.  K1 counts the bad pivots per block and zeroes
+    the non-finite entries of the inverse itself; the sum stays on the
+    device."""
+    Dinv, _, nbad = gj_inverse_inertia(D.contiguous())
+    return Dinv, nbad.sum()
 
 
 def bcr_factor(diag, lower, Bmat, C):

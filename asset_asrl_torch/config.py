@@ -5,9 +5,11 @@ FP64, so every tensor the port creates names `DTYPE` (float64) and
 `DEVICE` explicitly.  Torch defaults to float32 and to the CPU; nothing in
 the port relies on `torch.set_default_dtype` or on a default device.
 
-`DEVICE` is CUDA when a card is visible and the CPU otherwise.  Modules
-read it when they build their tensors (constants, index tables) and keep
-it, so a whole problem lives on one device.
+`DEVICE` is CUDA when a card is visible and the CPU otherwise, unless the
+caller asks for a device with `use_device("cpu")` before building a
+problem.  Modules read `config.DEVICE` when they build their tensors
+(constants, index tables) and keep it, so a whole problem lives on one
+device.
 """
 
 import torch
@@ -15,6 +17,14 @@ import torch
 DTYPE = torch.float64
 INDEX_DTYPE = torch.int64
 DEVICE = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def use_device(device):
+    """Make `device` ("cpu", "cuda", "cuda:1", a torch.device) the one
+    that problems built from now on live on.  Returns it."""
+    global DEVICE
+    DEVICE = torch.device(device)
+    return DEVICE
 
 
 def tensor(v, device=None):

@@ -7,11 +7,16 @@ Phases, each of which ends the run with a non-zero exit on failure:
 
 1. device: a CUDA card must be visible; prints its name, power limit and
    the torch / CUDA versions;
-2. build: compiles kernel K1 (`asset_asrl_torch/csrc/gj_inverse.cu`);
-3. K1 against its plain PyTorch version on seeded symmetric
-   quasi-definite blocks, f64 and f32, at the block-cyclic-reduction
-   shapes of the 10,001-node problem (narrow kernel) and at border widths
-   85 to 511 (wide kernel), each timed with CUDA events at one shape;
+2. build: compiles kernel K1 (`asset_asrl_torch/csrc/gj_inverse.cu`,
+   `gj_inverse_wide.cu`) and prints what `ptxas -v` reported;
+3. K1 against its plain PyTorch versions on seeded symmetric
+   quasi-definite blocks, f64 and f32: the narrow kernels at the
+   block-cyclic-reduction shapes of the 10^4-node problems, the wide
+   (blocked) kernel at border widths 65 to 1029 against both the
+   unblocked and the blocked plain version; the fused bad-pivot count
+   against the plain count, also on blocks with a zero and a NaN pivot;
+   a second run bitwise equal to the first; each kernel timed at several
+   shapes beside its bound, its plain version and `torch.linalg.inv_ex`;
 4. BCR factor/solve on the card against a dense solve and eigvalsh
    inertia;
 5. the CartPole swing-up (LGL5, 40 segments) through `phase.optimize()`
@@ -23,8 +28,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    transcriptions and the CartPole in the BlockConstant and
    HighestOrderSpline control modes, against the JAX package's flags,
    iterations and objectives;
-8. formation flying (two phases, PathToPath link) at 80 segments per
-   phase: the 85-wide border goes through the wide K1 kernel;
+8. formation flying (two phases, PathToPath link) at 80, 256 and 512
+   segments per phase: the border (segments + 5 wide) goes through the
+   wide K1 kernel;
 9. the 4-phase Delta III launch at 40 segments per phase through
    `ocp.solve_optimize()`, and a bitwise repeatability check of one
    factorization;
@@ -32,13 +38,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
    time-to-solution, iterations/s and peak device memory.
 
 Every phase resets the K1 launch counts just before it drives its problem
-and reads them just after.  The line before the last is a JSON object
+and reads them just after.  The line before the last two is a JSON object
 describing every kernel of the main path (narrow K1 launches from phase
-10, wide K1 launches from phase 8); the last line is the JSON device
-record.
+10, wide K1 launches from the 256-segment run of phase 8); then the
+card's name and power limit; the last line is the JSON device record.
 """
 
+import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -62,7 +70,9 @@ CARTPOLE_128 = {"BlockConstant": (0, 11, 58.85687489351558),
 # formation flying (PathToPath link), per-phase segments ->
 # (flag, iterations, objective, border width b)
 FORMATION = {8: (0, 3, 3.08847184948195, 13),
-             80: (0, 3, 3.0009299750648717, 85)}
+             80: (0, 3, 3.0009299750648717, 85),
+             256: (0, 3, 3.000091316839824, 261),
+             512: (0, 3, 3.000022859525826, 517)}
 # Delta III, LGL3 segments per phase -> (flag, iterations of
 # solve_optimize, final mass in kg)
 DELTA3 = {40: (0, 40, 7529.748664196064),
@@ -337,45 +347,169 @@ def cuda_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def graph_ms(fn, calls=10, reps=20):
+    """Device time of one fn(): `calls` calls captured into a CUDA graph,
+    median of `reps` CUDA-event timings of a replay, over `calls`.  The
+    replay has no host work between launches, so a kernel that is shorter
+    than its wrapper's host time is still timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps) / calls
+
+
+# H100 SXM data sheet: device memory rate, and the card's peak rates for
+# the type: FP64 through the tensor cores (mma.sync DMMA; K1's plain FMAs
+# can reach half of it), FP32 outside them
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
+
+
+def k1_bound(K, W, dtype):
+    """Least time (ms) the card could take for K1 on a (K, W, W) batch: the
+    larger of the bytes moved once (block in, inverse and pivots and
+    counts out) over the memory rate and 2 W^3 operations a block over the
+    peak rate.  Returns (bound_ms, "bytes" or "operations")."""
+    size = torch.finfo(dtype).bits // 8
+    t_bytes = (K * W * (2 * W + 1) * size + 4 * K) / PEAK_BYTES
+    t_ops = 2.0 * K * W ** 3 / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def plain_inertia(ck, D):
+    """The plain count of bad pivots and the zeroed inverse, from the
+    unblocked plain elimination on D's device."""
+    X, p = ck.gj_inverse_ref(D)
+    tiny = 1e-25 if D.dtype == torch.float32 else 1e-250
+    nbad = ((p < 0) | ~torch.isfinite(p) | (p.abs() < tiny)).sum(1)
+    return torch.where(torch.isfinite(X), X, torch.zeros_like(X)), p, nbad
+
+
+# (K, W) at which K1 is held against its plain versions, and the f64
+# shapes at which it is timed: the BCR levels of the 10^4-node problems
+# (W 24 and 25), the other widths of the solves below, both ends of each
+# kernel's range, and the borders of 80 to 1024 segments a phase
+K1_SHAPES = [(2500, 24), (1250, 24), (156, 24), (1, 24), (5002, 25),
+             (2501, 25), (1, 1), (1, 2), (514, 8), (25, 11), (13, 27), (3, 32), (3, 33),
+             (65, 42), (3, 64), (1, 65), (1, 85), (1, 160), (1, 255),
+             (1, 261), (2, 511), (1, 517), (1, 1029)]
+K1_TIMED = [(2500, 24), (156, 24), (1, 24), (5002, 25), (2501, 25),
+            (514, 8), (25, 11), (1, 255), (1, 261), (1, 517), (1, 1029)]
+# the shape of each kernel's entry in the kernels line, and the run that
+# its launches are read from: the first reduction level of Delta III at
+# 10,004 nodes, the border of formation flying at 256 segments
+K1_MAIN = {(5002, 25): ("gj_inverse", "Delta III, 10,004 nodes"),
+           (1, 261): ("gj_inverse_wide", "formation flying, 256 segments")}
+
+
 def phase_kernel(ck):
-    """Phase 3: K1 (narrow kernel up to W = 64, wide kernel above)
-    against gj_inverse_ref, f64 and f32.  Returns the measurements of the
-    narrow kernel at (2500,24,24) and of the wide one at (1,255,255)."""
+    """Phase 3: K1 (narrow kernels up to W = 64, the blocked wide kernel
+    above) against its plain versions, f64 and f32.  Tolerances: 1e-12
+    (f64) and 1e-4 (f32) relative on the inverse and on the pivots, and
+    equal pivot signs; the wide kernel's pivots are sums taken in another
+    order than the unblocked plain version's, so they are equal to
+    rounding, not bitwise.  Returns the f64 measurements by (K, W)."""
     out = {}
-    timed = {(2500, 24): "gj_inverse", (1, 255): "gj_inverse_wide"}
-    shapes = [(2500, 24), (1250, 24), (1, 24), (1, 2), (3, 64),
-              (1, 85), (1, 160), (1, 255), (2, 511)]
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
-        for i, (K, W) in enumerate(shapes):
+        for i, (K, W) in enumerate(K1_SHAPES):
             D = quasi_definite_blocks(K, W, seed=100 + i, dtype=dtype)
             n0, w0 = ck.gj_inverse.launches, ck.gj_inverse.wide_launches
             X, p = ck.gj_inverse(D)
-            Xr, pr = ck.gj_inverse_ref(D)
-            torch.cuda.synchronize()
             wide = W > ck.MAX_W
             check((ck.gj_inverse.wide_launches - w0,
                    ck.gj_inverse.launches - n0) == ((1, 0) if wide
                                                     else (0, 1)),
                   f"K1 at width {W} did not launch the expected kernel")
+            Xi, pi, nbad = ck.gj_inverse_inertia(D)
+            X2, p2, nbad2 = ck.gj_inverse_inertia(D)
+            torch.cuda.synchronize()
+            Xr, pr, nbad_r = plain_inertia(ck, D)
             ex, ep = rel(X, Xr), rel(p, pr)
             signs = bool(torch.equal(torch.sign(p), torch.sign(pr)))
+            same = all(torch.equal(a, b) for a, b in
+                       ((X, Xi), (p, pi), (Xi, X2), (pi, p2), (nbad, nbad2)))
+            note = ""
+            if wide:
+                Xb, pb = ck.gj_inverse_blocked_ref(D)
+                eb = max(rel(X, Xb), rel(p, pb))
+                note = f"  blocked plain rel {eb:.3e}"
+                check(eb <= tol, f"wide K1 disagrees with the blocked plain "
+                      f"version at ({K},{W}) {dtype}")
             print(f"K1{' wide' if wide else ''} {str(dtype)[6:]} "
                   f"({K},{W},{W}): inverse rel {ex:.3e}  pivots rel "
-                  f"{ep:.3e}  signs equal {signs}")
+                  f"{ep:.3e}{note}  signs equal {signs}  bad pivots "
+                  f"{int(nbad.sum())} (plain {int(nbad_r.sum())})  second "
+                  f"run bitwise equal {same}")
             check(ex <= tol and ep <= tol and signs,
                   f"K1 disagrees with its plain version at ({K},{W}) "
                   f"{dtype}")
-            name = timed.get((K, W))
-            if dtype == torch.float64 and name:
-                out[name] = dict(
+            check(torch.equal(nbad.long(), nbad_r),
+                  f"K1 bad-pivot count off at ({K},{W}) {dtype}")
+            check(same, f"K1 not bitwise repeatable at ({K},{W}) {dtype}")
+            if dtype == torch.float64 and (K, W) in K1_TIMED:
+                bound, by = k1_bound(K, W, dtype)
+                m = out[(K, W)] = dict(
                     max_abs_err=float((X - Xr).abs().max()),
-                    ms=cuda_ms(lambda: ck.gj_inverse(D)),
-                    plain_ms=cuda_ms(lambda: ck.gj_inverse_ref(D)))
-                print(f"K1 {name} ({K},{W},{W}) f64: kernel "
-                      f"{out[name]['ms']:.4f} ms, plain "
-                      f"{out[name]['plain_ms']:.4f} ms (median of 20, "
-                      f"CUDA events)")
+                    ms=graph_ms(lambda: ck.gj_inverse_inertia(D)),
+                    call_ms=cuda_ms(lambda: ck.gj_inverse_inertia(D)),
+                    plain_ms=cuda_ms(lambda: ck.gj_inverse_ref(D), reps=5),
+                    bound_ms=bound, bound_by=by,
+                    library_ms=cuda_ms(lambda: torch.linalg.inv_ex(D)))
+                print(f"  timing ({K},{W},{W}) f64: kernel {m['ms']:.5f} ms "
+                      f"on the device (graph replay), {m['call_ms']:.5f} ms "
+                      f"a wrapper call; bound {bound:.6f} ms by {by} "
+                      f"({100 * bound / m['ms']:.2f}% of the kernel's time); plain "
+                      f"{m['plain_ms']:.4f} ms; torch.linalg.inv_ex "
+                      f"{m['library_ms']:.4f} ms")
+
+        # a block with a zero pivot and a NaN pivot among clean ones
+        for W in (24, 40, 70, 261):
+            D = quasi_definite_blocks(3, W, seed=7, dtype=dtype)
+            zero, nan = W // 3, W // 2
+            D[1, [zero, nan], :] = 0.0
+            D[1, :, [zero, nan]] = 0.0
+            D[1, nan, nan] = float("nan")
+            X, p, nbad = ck.gj_inverse_inertia(D)
+            torch.cuda.synchronize()
+            Xr, pr, nbad_r = plain_inertia(ck, D)
+            print(f"K1 {str(dtype)[6:]} (3,{W},{W}) with a zero and a NaN "
+                  f"pivot: bad pivots {nbad.tolist()} (plain "
+                  f"{nbad_r.tolist()}), inverse rel {rel(X, Xr):.3e}")
+            check(torch.equal(nbad.long(), nbad_r)
+                  and float(p[1, zero]) == 0.0
+                  and bool(torch.isnan(p[1, nan]))
+                  and bool(torch.isfinite(X).all()) and rel(X, Xr) <= tol,
+                  f"K1 inertia epilogue off at width {W} {dtype}")
     return out
+
+
+def print_ptxas(ck):
+    """What ptxas -v reported for the built kernels: the totals, and the
+    lines of the instances the solves below launch most."""
+    want = ("Li8E", "Li12E", "Li24E", "Li28E", "Li44E", "Li64E", "panel",
+            "update")
+    for log in ck.build.logs:
+        with open(log) as f:
+            txt = f.read()
+        names = re.findall(r"Compiling entry function '(\S+)'", txt)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", txt)]
+        spill = [tuple(map(int, m)) for m in re.findall(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
+            r"bytes spill loads", txt)]
+        print(f"ptxas {log.rsplit('/', 1)[-1]}: {len(names)} kernels, "
+              f"registers up to {max(regs)}, stack frame up to "
+              f"{max(s[0] for s in spill)} B, spill stores up to "
+              f"{max(s[1] for s in spill)} B")
+        for n, r, sp in zip(names, regs, spill):
+            if any(w in n for w in want):
+                print(f"  {n}: {r} registers, stack/spill stores/loads {sp}")
 
 
 def phase_bcr(kb):
@@ -417,6 +551,14 @@ def phase_bcr(kb):
               f"{int(neigs)} vs eigvalsh {nneg}")
         check(err < 1e-8, "BCR solve disagrees with the dense solve")
         check(int(neigs) == nneg, "BCR inertia disagrees with eigvalsh")
+
+
+def reset_peak_memory():
+    """Start a peak-memory reading: the problems of earlier phases are
+    collected first, so that the peak is this problem's alone."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def run_phase(ast, ck, nsegs):
@@ -479,7 +621,7 @@ def check_repeatable_factor(opt, x):
 
 def phase_slice5000(ast, ck):
     """Phase 6: the 10,001-node problem."""
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     ph, flag, launches, t_setup, t_solve = run_phase(ast, ck, 5000)
     opt = ph.optimizer
     it, obj = opt.LastIterNum, opt.LastObjVal
@@ -536,10 +678,10 @@ def phase_breadth(ast, ck):
         check(np.isfinite(traj).all(), f"{prob} {mode}: trajectory")
 
 
-def phase_formation(ast, ck, nsegs=80):
+def phase_formation(ast, ck, nsegs):
     """Phase 8: formation flying with a PathToPath link; the border
     (b = segments + 5) is wider than 64, so it goes through the wide K1
-    kernel."""
+    kernel.  Returns the wide kernel's launches."""
     rflag, rit, robj, rb = FORMATION[nsegs]
     ocp, pa, pb = build_formation(ast, nsegs)
     ocp.optimizer.set_PrintLevel(2)
@@ -596,7 +738,7 @@ def phase_delta3_40(ast, ck):
 
 def phase_delta3_full(ast, ck):
     """Phase 10: Delta III at 2500 segments per phase (10,004 nodes)."""
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     ocp, mass, launches, t_setup, t_solve = run_delta3(ast, ck, 2500)
     opt = ocp.optimizer
     it = opt.LastIterNum
@@ -632,22 +774,30 @@ def main():
     t0 = time.perf_counter()
     ck.build()
     print(f"build: K1 compiled and loaded in {time.perf_counter() - t0:.2f} s")
+    print_ptxas(ck)
 
     k1 = phase_kernel(ck)
     phase_bcr(kb)
     phase_slice40(ast, ck)
     phase_slice5000(ast, ck)
     phase_breadth(ast, ck)
-    wide = phase_formation(ast, ck)
+    wide = {n: phase_formation(ast, ck, n) for n in (80, 256, 512)}[256]
     phase_delta3_40(ast, ck)
     narrow = phase_delta3_full(ast, ck)
 
     launches = {"gj_inverse": narrow, "gj_inverse_wide": wide}
+    source = {"gj_inverse": "asset_asrl_torch/csrc/gj_inverse.cu",
+              "gj_inverse_wide": "asset_asrl_torch/csrc/gj_inverse_wide.cu"}
+
+    def shapes_of(is_wide):
+        return [dict(shape=[K, W, W], **m) for (K, W), m in k1.items()
+                if (W > ck.MAX_W) == is_wide]
     print(json.dumps({"kernels": [dict(
-        name=name, route="cuda",
-        source="asset_asrl_torch/csrc/gj_inverse.cu",
+        name=name, route="cuda", source=source[name],
         replaces="asset_asrl_tpu/Solvers/pallas_kernels.py:103",
-        launches=launches[name], **k1[name]) for name in launches]}))
+        launches=launches[name], launches_from=run, shape=[K, W, W],
+        **k1[(K, W)], shapes=shapes_of(W > ck.MAX_W))
+        for (K, W), (name, run) in K1_MAIN.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,6 +8,10 @@ import sys
 import torch
 
 torch.set_num_threads(2)
+# the port's tests run on the CPU, also on a machine with a card (the
+# `cuda` tests place their tensors on the card themselves)
+import asset_asrl_torch.config  # noqa: E402
+asset_asrl_torch.config.use_device("cpu")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

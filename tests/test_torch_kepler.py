@@ -11,6 +11,10 @@ import asset_asrl_tpu as jast
 import asset_asrl_torch as tast
 
 torch.set_num_threads(2)
+# the port's tests run on the CPU, also on a machine with a card (the
+# `cuda` tests place their tensors on the card themselves)
+import asset_asrl_torch.config  # noqa: E402
+asset_asrl_torch.config.use_device("cpu")
 
 
 def orbits(seed, n=6):

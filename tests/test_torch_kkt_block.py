@@ -15,6 +15,10 @@ from asset_asrl_torch.Solvers.kkt_block import bcr_factor, bcr_solve
 from chip_smoke import build_cartpole
 
 torch.set_num_threads(2)
+# the port's tests run on the CPU, also on a machine with a card (the
+# `cuda` tests place their tensors on the card themselves)
+import asset_asrl_torch.config  # noqa: E402
+asset_asrl_torch.config.use_device("cpu")
 
 
 def make_block_tridiag(K, W, b, seed=0, spd=False):

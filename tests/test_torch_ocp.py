@@ -4,7 +4,8 @@ the JAX package's.
 * formation flying (two phases, PathToPath link) at 8 segments against the
   JAX host loop, then one factor/solve of the JAX package's final iterate
   side by side (carried over with `interop.iterate_of_problem`);
-* the same at 80 segments: its border (85 wide) needs K1 above 64;
+* the same at 80 segments: its border (85 wide) needs K1 above 64; and at
+  256 segments (border 261) against a JAX solve of the same mesh;
 * the link-objective routing and the StaticParams-link checks of
   `tests/test_pathtopath.py`, and every other link form at the initial
   guess (value + Jacobian of each link family);
@@ -29,6 +30,10 @@ from asset_asrl_torch.Solvers import nlp as tnlp
 from chip_smoke import D3, DELTA3, FORMATION, build_delta3, build_formation
 
 torch.set_num_threads(2)
+# the port's tests run on the CPU, also on a machine with a card (the
+# `cuda` tests place their tensors on the card themselves)
+import asset_asrl_torch.config  # noqa: E402
+asset_asrl_torch.config.use_device("cpu")
 
 CONVERGED = 0
 
@@ -103,6 +108,25 @@ def test_formation_80_border_wider_than_64():
     assert ocp.optimizer.kkt.bs.b == b0 == 85
     assert ocp.optimizer.LastIterNum == it0
     assert abs(ocp.optimizer.LastObjVal - obj0) <= 1e-8 * obj0
+    gap = np.asarray(pb.returnTraj())[:, 0] - np.asarray(pa.returnTraj())[:, 0]
+    assert np.allclose(gap, 0.2, atol=1e-6)
+
+
+def test_formation_256_matches_jax():
+    """256 segments a phase (K 514, W 8, border 261: four times the wide
+    kernel's panel count of the 80-segment case) against the JAX host
+    loop on the same mesh: flag, iterations, objective to 1e-8."""
+    flag0, it0, obj0, b0 = FORMATION[256]
+    (oj, _, _), (ot, pa, pb) = (build_formation(jast, 256),
+                                build_formation(tast, 256))
+    fj, ft = quiet(oj).optimize(), quiet(ot).optimize()
+    assert fj == ft == flag0 == CONVERGED
+    assert oj.optimizer.LastIterNum == ot.optimizer.LastIterNum == it0
+    assert abs(oj.optimizer.LastObjVal - obj0) <= 1e-8 * obj0
+    assert abs(ot.optimizer.LastObjVal - oj.optimizer.LastObjVal) \
+        <= 1e-8 * obj0
+    bj, bt = oj.optimizer.kkt.bs, ot.optimizer.kkt.bs
+    assert (bj.K, bj.W, bj.b) == (bt.K, bt.W, bt.b) == (514, 8, b0)
     gap = np.asarray(pb.returnTraj())[:, 0] - np.asarray(pa.returnTraj())[:, 0]
     assert np.allclose(gap, 0.2, atol=1e-6)
 

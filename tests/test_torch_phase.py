@@ -18,6 +18,10 @@ from asset_asrl_torch.Solvers import nlp as tnlp
 from chip_smoke import build_cartpole
 
 torch.set_num_threads(2)
+# the port's tests run on the CPU, also on a machine with a card (the
+# `cuda` tests place their tensors on the card themselves)
+import asset_asrl_torch.config  # noqa: E402
+asset_asrl_torch.config.use_device("cpu")
 
 
 @pytest.fixture(scope="module")

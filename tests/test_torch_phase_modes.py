@@ -19,6 +19,10 @@ from chip_smoke import (BRACH_24, CARTPOLE_128, build_brachistochrone,
                         build_cartpole)
 
 torch.set_num_threads(2)
+# the port's tests run on the CPU, also on a machine with a card (the
+# `cuda` tests place their tensors on the card themselves)
+import asset_asrl_torch.config  # noqa: E402
+asset_asrl_torch.config.use_device("cpu")
 
 CONVERGED = 0
 TOL = 1e-12

@@ -10,6 +10,10 @@ import asset_asrl_torch as tast
 from chip_smoke import OBJ_40, build_cartpole
 
 torch.set_num_threads(2)
+# the port's tests run on the CPU, also on a machine with a card (the
+# `cuda` tests place their tensors on the card themselves)
+import asset_asrl_torch.config  # noqa: E402
+asset_asrl_torch.config.use_device("cpu")
 
 CONVERGED = tast.Solvers.ConvergenceFlags.CONVERGED
 
