@@ -5,10 +5,13 @@ Port of `asset_asrl_tpu/OptimalControl/ocp.py`.  One flat variable vector
 through link rows.  For the block KKT the phases are consecutive spans of
 one global node chain: forward links couple adjacent nodes and stay in
 the band, while Path-to-Path and other long-range links go to the dense
-border.
+border.  Auto-scaled phases expose scaled variables, so the link families
+multiply them by the global unit vector and see physical values.  With
+`setAdaptiveMesh(True)` every solve is followed by the multi-phase mesh
+loop: estimate each phase's error, refine the failing phases,
+re-transcribe the whole problem, re-solve.
 
-Not ported yet (ROADMAP queue 1): the adaptive-mesh loop, auto-scaling
-and the sharded backend.
+Not ported: the sharded KKT backend.
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ class OptimalControlProblem:
         self._link_specs = []
         self._nlp = None
         self._ocp_struct_key = None
+        self.AdaptiveMesh = False
+        self.Threads = 1
+        self.JetJobMode = "optimize"
 
     # ----------------------------------------------------------- phase admin
     def addPhase(self, phase, name=None):
@@ -215,6 +221,12 @@ class OptimalControlProblem:
         nlp = NonLinearProgram(nvars, device=self.device)
         self._offsets = offsets
         self._offsets_map = {id(p): o for p, o in zip(self.Phases, offsets)}
+        # global unit vector: auto-scaled phases expose scaled variables,
+        # and link functions must see physical values
+        self._Uglob = np.ones(nvars)
+        for p, o in zip(self.Phases, offsets):
+            if p.AutoScaling:
+                self._Uglob[o:o + p.numVars] = p.var_units()
         for p, o in zip(self.Phases, offsets):
             eqs, iqs, objs = p._build_families()
             for fam in eqs:
@@ -357,8 +369,16 @@ class OptimalControlProblem:
                 parts.append(g[nin - lpn:])
             return trace(torch.cat(parts))
 
-        fam = IndexedFunction(fun, Vidx, consts, name="pathlink")
+        fam = IndexedFunction(fun, Vidx, consts, name="pathlink",
+                              in_scales=self._Uglob[Vidx])
         {"objective": nlp.addObjective, "eq": nlp.addEqualCon}[kind](fam)
+
+    def _link_family(self, fun, idx):
+        """One-application link family over the global indices `idx`, fed
+        physical values."""
+        idx = np.asarray([idx], np.int64)
+        return IndexedFunction(fun, idx, np.zeros((1, 1)), name="link",
+                               in_scales=self._Uglob[idx])
 
     def _transcribe_link(self, nlp, spec):
         kind = spec[0]
@@ -381,7 +401,6 @@ class OptimalControlProblem:
             empty = np.zeros(0, np.int64)
             sel = [(pa, ra, va, empty, empty), (pb, rb, vb, empty, empty)]
             return self._transcribe_path_link(nlp, func, sel, empty, "eq")
-        one = np.zeros((1, 1))
         if kind == "direct":
             _, func, pa, ra, va, pb, rb, vb = spec
             packa = self._region_pack(pa, ra)
@@ -405,8 +424,7 @@ class OptimalControlProblem:
                 def fun(g, c):
                     return trace(torch.cat([build_inp(packa, g, 0)[vat],
                                             build_inp(packb, g, la)[vbt]]))
-            nlp.addEqualCon(IndexedFunction(
-                fun, [packa[2] + packb[2]], one, name="link"))
+            nlp.addEqualCon(self._link_family(fun, packa[2] + packb[2]))
         elif kind == "general_idx":
             _, func, sel, lp = spec
             trace = _tracefun(func)[0]
@@ -429,7 +447,7 @@ class OptimalControlProblem:
                 if lpn:
                     parts.append(g[lp_lo:lp_lo + lpn])
                 return trace(torch.cat(parts))
-            nlp.addEqualCon(IndexedFunction(fun, [idx], one, name="link"))
+            nlp.addEqualCon(self._link_family(fun, idx))
         elif kind in ("general", "objective"):
             _, func, pr = spec
             trace = _tracefun(func)[0]
@@ -456,7 +474,7 @@ class OptimalControlProblem:
                     parts.append(g[lp_lo:])
                 return trace(torch.cat(parts))
 
-            fam = IndexedFunction(fun, [idx], one, name="link")
+            fam = self._link_family(fun, idx)
             if kind == "objective":
                 nlp.addObjective(fam)
             else:
@@ -466,7 +484,7 @@ class OptimalControlProblem:
             trace = _tracefun(func)[0]
             nlp.addEqualCon(IndexedFunction(
                 lambda g, c: trace(g),
-                [[self._lp_offset + int(k) for k in pidx]], one,
+                [[self._lp_offset + int(k) for k in pidx]], np.zeros((1, 1)),
                 name="linkparam"))
 
     # --------------------------------------------------------------- solving
@@ -480,11 +498,36 @@ class OptimalControlProblem:
         if self._link_params.size:
             self._link_params = np.asarray(V[self._lp_offset:])
 
-    def _call(self, method):
+    def _solve_once(self, method):
         self.transcribe()
         V = getattr(self.optimizer, method)(self._make_input())
         self._collect(np.asarray(V))
         return self.optimizer.ConvergeFlag
+
+    def _call(self, method):
+        flag = self._solve_once(method)
+        if not self.AdaptiveMesh:
+            return flag
+        # multi-phase adaptive mesh loop: estimate per-phase errors, refine
+        # the failing phases, re-transcribe the whole problem, re-solve
+        from . import mesh
+        for _ in range(max(p.MaxMeshIters for p in self.Phases)):
+            all_ok = True
+            for i, p in enumerate(self.Phases):
+                errs = mesh.segment_errors(p)
+                err = mesh._combine(errs, p.MeshErrorCriteria)
+                p.MeshConverged = err < p.MeshTol
+                if self.optimizer.PrintLevel <= 1:
+                    print(f"  [mesh] phase {i}: segs {p.numSegs} "
+                          f"err {err:.3e} tol {p.MeshTol:.1e}")
+                if not p.MeshConverged:
+                    all_ok = False
+                    n_new, bounds = mesh.update_mesh(p, errs)
+                    p.resampleTraj(n_new, seg_bounds=bounds)
+            if all_ok:
+                return flag
+            flag = self._solve_once(method)
+        return flag
 
     def optimize(self):
         return self._call("optimize")
@@ -500,3 +543,31 @@ class OptimalControlProblem:
 
     def optimize_solve(self):
         return self._call("optimize_solve")
+
+    def jet_run(self):
+        return self._call({"optimize": "optimize", "solve": "solve",
+                           "solve_optimize": "solve_optimize"}.get(
+                               self.JetJobMode, "optimize"))
+
+    # ------------------------------------------------------------------ misc
+    def setThreads(self, *a):
+        pass
+
+    def setAdaptiveMesh(self, flag=True, *a):
+        self.AdaptiveMesh = bool(flag)
+        for p in self.Phases:
+            p.setAdaptiveMesh(flag)
+
+    def setAutoScaling(self, flag=True, *a):
+        for p in self.Phases:
+            p.setAutoScaling(flag)
+
+    def setMeshTol(self, tol):
+        for p in self.Phases:
+            p.setMeshTol(tol)
+
+    def PrintMeshInfo(self, *a):
+        pass
+
+    def setJetJobMode(self, mode):
+        self.JetJobMode = mode

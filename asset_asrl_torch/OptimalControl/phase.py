@@ -2,8 +2,10 @@
 
 Port of `asset_asrl_tpu/OptimalControl/phase.py`: the LGL3/5/7, Trapezoidal
 and CentralShooting transcriptions, the four control modes, static
-parameters and the constraint/objective API, solved by PSIOPT on the
-block KKT (or the dense KKT when the structure does not fit it).
+parameters and the constraint/objective API, uniform and non-uniform
+meshes with adaptive refinement (`mesh.py`), units and auto-scaling,
+trajectory tables and costates, solved by PSIOPT on the block KKT (or the
+dense KKT when the structure does not fit it).
 
 * Variable layout: [ (x_i, u_i) for node i ] ++ [t0, tf] ++ [ODE params]
   ++ [static params].  Node times are affine in t0/tf through the fixed
@@ -13,9 +15,6 @@ block KKT (or the dense KKT when the structure does not fit it).
   closure + a (napps, nin) gather matrix + per-application constants,
   evaluated with one vmap per family.  Closure constants (scheme
   coefficient matrices, indices) are tensors on the problem's device.
-
-Not ported yet (ROADMAP queue 1): auto-scaling and units, the adaptive
-mesh and non-uniform meshes, costates, trajectory tables and refinement.
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ import torch
 
 from .. import config
 from ..VectorFunctions.function import VectorFunction
-from ..Solvers.nlp import NonLinearProgram, IndexedFunction
+from ..Solvers.nlp import NonLinearProgram, IndexedFunction, _family_valjac
 from ..Solvers.psiopt import PSIOPT
 from .lgl import get_scheme
 
@@ -98,7 +97,7 @@ class _Spec:
 
 class Phase:
 
-    def __init__(self, ode, tmode, IG=None, numsegs=None):
+    def __init__(self, ode, tmode, IG=None, numsegs=None, spacefun=None):
         self.ode = ode
         # the device the expression constants live on (config.DEVICE);
         # passed down to the NLP and the KKT backend
@@ -111,6 +110,32 @@ class Phase:
         self.KKTBackend = "block"
         self.optimizer = PSIOPT()
         self._specs: list[_Spec] = []
+        self.AdaptiveMesh = False
+        self.MeshTol = 1.0e-6
+        self.MaxMeshIters = 10
+        self.MeshErrorEstimator = "integrator"
+        self.MeshErrorCriteria = "max"
+        self.MeshRedFactor = 0.5
+        self.MeshIncFactor = 5.0
+        self.MinSegments = 4
+        self.MaxSegments = 10000
+        self.MeshErrFactor = 10.0
+        self.MeshConverged = False
+        # quantize new segment counts to a geometric ladder, so that
+        # consecutive mesh iterations repeat counts and reuse the
+        # transcription (see `mesh.update_mesh`)
+        self.MeshBucketing = True
+        self.DetectControlSwitches = False
+        self.SwitchTol = 0.1
+        self.NumExtraAddsPerSwitch = 4
+        self.AutoScaling = False
+        self._units = None
+        self._xtup_units = None     # canonical unit per XtUP variable
+        self._scale_vec = None      # unit per phase variable when scaling
+        self._obj_scale = None      # the synchronized objective row scale
+        self._integrator = None
+        self.Threads = 1
+        self.JetJobMode = "optimize"
         self._numsegs = None
         self._traj = None                  # node rows [x, t, u]
         self._odeparams = np.zeros(self.PV)
@@ -125,9 +150,12 @@ class Phase:
             self.setTraj(IG, max(len(IG) - 1, 4))
 
     # ------------------------------------------------------------------ mesh
-    def _node_structure(self, numsegs):
-        """Nodes-per-segment layout and normalized node times (uniform
-        segments)."""
+    def _node_structure(self, numsegs, seg_bounds=None):
+        """Nodes-per-segment layout and normalized node times.
+
+        seg_bounds: optional (numsegs+1,) non-uniform normalized segment
+        boundaries (error-equidistributed meshes from adaptive refinement);
+        default uniform."""
         tm = self.TranscriptionMode
         S = int(numsegs)
         cs = {"LGL3": 2, "Trapezoidal": 2, "CentralShooting": 2,
@@ -138,7 +166,14 @@ class Phase:
         self._scheme = get_scheme("LGL3" if cs == 2 else tm)
         self.numSegs = S
         self.numNodes = S * (cs - 1) + 1
-        bounds = np.linspace(0.0, 1.0, S + 1)
+        if seg_bounds is None:
+            bounds = np.linspace(0.0, 1.0, S + 1)
+        else:
+            bounds = np.asarray(seg_bounds, np.float64)
+            if bounds.shape != (S + 1,):
+                raise ValueError(
+                    f"seg_bounds must have {S + 1} entries, got "
+                    f"{bounds.shape}")
         taus = [0.0]
         for k in range(S):
             a, b = bounds[k], bounds[k + 1]
@@ -156,6 +191,9 @@ class Phase:
     @property
     def _m(self):
         return self.XV + self.UV
+
+    def _xvar(self, node, i):
+        return node * self._m + i
 
     def _uvar(self, node, j):
         if self.ControlMode == ControlModes.BlockConstant:
@@ -182,7 +220,12 @@ class Phase:
         return self.numNodes * self._m + 2 + self.PV + self.SPV
 
     # ------------------------------------------------------------------- IG
-    def setTraj(self, IG, numsegs=None):
+    def setTraj(self, IG, numsegs=None, *args, seg_bounds=None):
+        # overload setTraj(IG, nsegs, bounds): a non-uniform bounds array
+        # may also come positionally
+        if args and seg_bounds is None and args[0] is not None \
+                and not isinstance(args[0], (bool, int)):
+            seg_bounds = np.asarray(args[0], np.float64)
         IG = np.asarray([np.asarray(r, dtype=np.float64).ravel() for r in IG])
         need = self.XV + 1 + self.UV
         if IG.shape[1] < need:
@@ -191,7 +234,7 @@ class Phase:
         if numsegs is None:
             numsegs = self._numsegs or max(len(IG) - 1, 4)
         self._numsegs = int(numsegs)
-        self._node_structure(self._numsegs)
+        self._node_structure(self._numsegs, seg_bounds=seg_bounds)
         tcol = IG[:, self.XV]
         self.t0 = float(tcol[0])
         self.tf = float(tcol[-1])
@@ -209,6 +252,35 @@ class Phase:
             self._odeparams = IG[:, need:need + self.PV].mean(axis=0)
         self._need_transcribe = True
 
+    def refineTrajManual(self, numsegs):
+        """Re-mesh the current trajectory onto `numsegs` uniform
+        segments."""
+        self.resampleTraj(numsegs)
+
+    def refineTrajEqual(self, numsegs):
+        self.refineTrajManual(numsegs)
+
+    def resampleTraj(self, numsegs, seg_bounds=None):
+        """Re-mesh through the scheme-order interpolant: new node states
+        from the degree-(2cs-1) segment Hermite, controls from the
+        scheme's Lagrange interpolant, which keeps the solution's
+        h^(2cs-2) accuracy across mesh updates (plain setTraj on raw rows
+        is linear)."""
+        from .interp_table import LGLInterpTable
+        if self._traj is None:
+            raise ValueError("resampleTraj requires an existing trajectory")
+        tab = LGLInterpTable.from_phase(self)
+        self._numsegs = int(numsegs)
+        self._node_structure(self._numsegs, seg_bounds=seg_bounds)
+        ts_new = self.t0 + self.taus * (self.tf - self.t0)
+        vals = tab.eval_batch(ts_new)                   # (N, XV+UV)
+        rows = np.empty((len(ts_new), self.XV + 1 + self.UV))
+        rows[:, :self.XV] = vals[:, :self.XV]
+        rows[:, self.XV] = ts_new
+        rows[:, self.XV + 1:] = vals[:, self.XV:]
+        self._traj = rows
+        self._need_transcribe = True
+
     # ------------------------------------------------------------ params API
     def setStaticParams(self, vals, *args):
         self._static_params = np.asarray(vals, dtype=np.float64).ravel()
@@ -221,6 +293,84 @@ class Phase:
     def setControlMode(self, mode):
         self.ControlMode = str(mode)
         self._need_transcribe = True
+
+    def setThreads(self, *a):
+        pass
+
+    def setUnits(self, *a, **kw):
+        """Canonical units per XtUP variable, consumed by auto-scaling:
+        positional values, one array (e.g. from `ode.make_units`), or
+        Vgroup names / indices as keywords."""
+        if a and not isinstance(a[0], (int, float)):
+            u = np.asarray(a[0], dtype=np.float64).ravel()
+        elif a:
+            u = np.asarray(a, dtype=np.float64).ravel()
+        else:
+            u = None
+        need = self.XV + 1 + self.UV + self.PV
+        if u is not None:
+            if u.size < need:
+                u = np.concatenate([u, np.ones(need - u.size)])
+            self._xtup_units = u[:need]
+        if kw:
+            units = self._xtup_units
+            if units is None:
+                units = np.ones(need)
+            for name, val in kw.items():
+                units[self._resolve_idx(name)] = float(val)
+            self._xtup_units = units
+        self._units = (a, kw)
+
+    def setAutoScaling(self, flag=True, *a):
+        self.AutoScaling = bool(flag)
+
+    def setAdaptiveMesh(self, flag=True, *a):
+        self.AdaptiveMesh = bool(flag)
+
+    def setMeshTol(self, tol):
+        self.MeshTol = float(tol)
+
+    def setMaxMeshIters(self, n):
+        self.MaxMeshIters = int(n)
+
+    def setControlSwitchDetection(self, flag=True, tol=0.1, extra=4):
+        self.DetectControlSwitches = bool(flag)
+        self.SwitchTol = float(tol)
+        self.NumExtraAddsPerSwitch = int(extra)
+
+    def setMeshErrorEstimator(self, est):
+        self.MeshErrorEstimator = str(est)
+
+    def setMeshErrorCriteria(self, c):
+        self.MeshErrorCriteria = str(c)
+
+    def setMeshErrFactor(self, f):
+        self.MeshErrFactor = float(f)
+
+    def setMeshRedFactor(self, f):
+        self.MeshRedFactor = float(f)
+
+    def setMeshIncFactor(self, f):
+        self.MeshIncFactor = float(f)
+
+    def setMinSegments(self, n):
+        self.MinSegments = int(n)
+
+    def setMaxSegments(self, n):
+        self.MaxSegments = int(n)
+
+    def PrintMeshInfo(self, *a):
+        pass
+
+    @property
+    def integrator(self):
+        """Phase-owned integrator, available for user stepping."""
+        if self._integrator is None:
+            from ..Integrators import Integrator
+            span = abs(self.tf - self.t0) if self._traj is not None else 1.0
+            self._integrator = Integrator(
+                self.ode, 0.1 * span / max(self.numSegs, 1))
+        return self._integrator
 
     def setKKTBackend(self, backend):
         """'block' (default): block-tridiagonal BCR; 'dense': the dense
@@ -917,6 +1067,59 @@ class Phase:
                                   segs=list(range(self.numSegs)))
         return IndexedFunction(fun, Vidx, consts, name="integral")
 
+    def var_units(self):
+        """(numVars,) canonical unit per phase variable (1 = unscaled)."""
+        units = self._xtup_units
+        if units is None:
+            units = np.ones(self.XV + 1 + self.UV + self.PV)
+        XV, UV, m = self.XV, self.UV, self._m
+        U = np.ones(self.numVars)
+        nodes = U[:self.numNodes * m].reshape(self.numNodes, m)
+        nodes[:, :XV] = units[:XV]
+        nodes[:, XV:] = units[XV + 1:XV + 1 + UV]
+        U[self._t0i] = U[self._tfi] = units[XV]
+        for k in range(self.PV):
+            U[self._opi(k)] = units[XV + 1 + UV + k]
+        return U
+
+    def _apply_autoscale(self, eqs, iqs, objs):
+        """Scale variables by their units and constraint rows by the
+        probed mean norm of the unit-scaled Jacobian row (each family's
+        Jacobian is evaluated once at the raw input, on the problem's
+        device); the objectives share one synchronized scale."""
+        U = self.var_units()
+        self._scale_vec = U
+        V0 = config.tensor(self.makeSolverInput(raw=True), self.device)
+
+        def row_scales(fam):
+            _, jx = _family_valjac(fam.fun)(
+                V0[config.index(fam.Vidx, self.device)],
+                config.tensor(fam.consts, self.device))
+            rown = np.linalg.norm(
+                jx.cpu().numpy() * U[fam.Vidx][:, None, :], axis=2)
+            return 1.0 / np.clip(rown.mean(axis=0), 1e-8, 1e8)
+
+        def rescale(fam, rs):
+            out = IndexedFunction(
+                fam.fun, fam.Vidx, fam.consts, name=fam.name,
+                in_scales=U[fam.Vidx],
+                out_scales=np.broadcast_to(rs, (fam.napps, fam.nout)))
+            # the scaling wrapper appends its columns after the original
+            # consts, so taus and data columns keep their position
+            for attr in ("_data_cols", "_region", "_ntau"):
+                if getattr(fam, attr, None) is not None:
+                    setattr(out, attr, getattr(fam, attr))
+            return out
+
+        eqs2 = [rescale(f, row_scales(f)) for f in eqs]
+        iqs2 = [rescale(f, row_scales(f)) for f in iqs]
+        self._obj_scale = 1.0
+        if objs:
+            self._obj_scale = float(np.mean([row_scales(f)[0]
+                                             for f in objs]))
+            objs = [rescale(f, np.full(1, self._obj_scale)) for f in objs]
+        return eqs2, iqs2, objs
+
     def _build_families(self):
         """(eqs, iqs, objs) IndexedFunction lists in phase-local indices;
         records [(family, spec or None)] for the consts refresh."""
@@ -936,6 +1139,10 @@ class Phase:
                 {"obj": objs, "eq": eqs, "iq": iqs}[spec.kind].append(fam)
                 {"obj": obj_specs, "eq": eq_specs,
                  "iq": iq_specs}[spec.kind].append(spec)
+        if self.AutoScaling:
+            eqs, iqs, objs = self._apply_autoscale(eqs, iqs, objs)
+        else:
+            self._scale_vec = self._obj_scale = None
         self._built = list(zip(eqs + iqs + objs,
                                eq_specs + iq_specs + obj_specs))
         return eqs, iqs, objs
@@ -950,7 +1157,7 @@ class Phase:
 
     def _structure_key(self):
         return (self._numsegs, self.TranscriptionMode, self.ControlMode,
-                self.SPV, self.PV, self.KKTBackend,
+                self.AutoScaling, self.SPV, self.PV, self.KKTBackend,
                 tuple(id(s) for s in self._specs))
 
     def _refresh_consts(self, nlp=None):
@@ -1010,7 +1217,9 @@ class Phase:
         self._need_transcribe = False
 
     # --------------------------------------------------------- solve entries
-    def makeSolverInput(self):
+    def makeSolverInput(self, raw=False):
+        """The solver's variable vector of the current trajectory, in
+        scaled variables when auto-scaling is on (raw: always physical)."""
         m = self._m
         V = np.zeros(self.numVars)
         nodes = V[:self.numNodes * m].reshape(self.numNodes, m)
@@ -1022,10 +1231,14 @@ class Phase:
             V[self._opi(k)] = self._odeparams[k]
         for k in range(self.SPV):
             V[self._spi(k)] = self._static_params[k]
+        if not raw and self._scale_vec is not None:
+            V = V / self._scale_vec
         return V
 
     def collectSolverOutput(self, V):
         V = np.asarray(V, np.float64)
+        if self._scale_vec is not None:
+            V = V * self._scale_vec
         m = self._m
         self.t0 = float(V[self._t0i])
         self.tf = float(V[self._tfi])
@@ -1045,27 +1258,45 @@ class Phase:
             self._static_params = np.array(
                 [V[self._spi(k)] for k in range(self.SPV)])
 
-    def _psiopt_call(self, method):
+    def _psipot_call(self, method):
         if self._need_transcribe or self._nlp is None:
             self.transcribe()
         V = getattr(self.optimizer, method)(self.makeSolverInput())
         self.collectSolverOutput(V)
+        if self._obj_scale:
+            # report the physical objective (rows run scaled internally)
+            self.optimizer.LastObjVal /= self._obj_scale
         return self.optimizer.ConvergeFlag
 
+    def _mesh_call(self, method):
+        flag = self._psipot_call(method)
+        if not self.AdaptiveMesh:
+            return flag
+        from .mesh import adaptive_mesh_loop
+        return adaptive_mesh_loop(self, method, flag)
+
     def optimize(self):
-        return self._psiopt_call("optimize")
+        return self._mesh_call("optimize")
 
     def solve(self):
-        return self._psiopt_call("solve")
+        return self._mesh_call("solve")
 
     def solve_optimize(self):
-        return self._psiopt_call("solve_optimize")
+        return self._mesh_call("solve_optimize")
 
     def solve_optimize_solve(self):
-        return self._psiopt_call("solve_optimize_solve")
+        return self._mesh_call("solve_optimize_solve")
 
     def optimize_solve(self):
-        return self._psiopt_call("optimize_solve")
+        return self._mesh_call("optimize_solve")
+
+    def jet_run(self):
+        mode = str(self.JetJobMode).lower().replace("_", "")
+        canon = {"optimize": "optimize", "solve": "solve",
+                 "solveoptimize": "solve_optimize",
+                 "optimizesolve": "optimize_solve",
+                 "solveoptimizesolve": "solve_optimize_solve"}
+        return self._mesh_call(canon.get(mode, "optimize"))
 
     # ----------------------------------------------------------- extraction
     def returnTraj(self):
@@ -1074,3 +1305,47 @@ class Phase:
             out = np.hstack([out, np.tile(self._odeparams,
                                           (out.shape[0], 1))])
         return [row.copy() for row in out]
+
+    def returnTrajTable(self):
+        """Scheme-order interpolation table of the current trajectory."""
+        from .interp_table import LGLInterpTable
+        return LGLInterpTable.from_phase(self)
+
+    def returnTrajError(self):
+        from .mesh import trajectory_error
+        return trajectory_error(self)
+
+    def returnCostateTraj(self):
+        """Costate estimate from the defect multipliers: the defect rows
+        carry the w_i*h quadrature scaling, so the raw multiplier of
+        interior collocation point i is the costate at t_i; the samples at
+        the interior times are linearly interpolated (extrapolated at the
+        phase ends) onto the cardinal node times.  Rows are [costates,
+        t]."""
+        lam = self.optimizer.LastEqLmults
+        if lam is None:
+            raise RuntimeError("no multipliers: solve first")
+        cs = self._cs
+        trap = self.TranscriptionMode == "Trapezoidal"
+        nI = 1 if trap else cs - 1
+        S = self.numSegs
+        # the defect family comes first among the equality rows
+        lam_def = lam[:S * nI * self.XV].reshape(S, nI, self.XV)
+        T = self.tf - self.t0
+        # interior collocation times per segment (trapezoidal: midpoint)
+        itau = np.array([0.5]) if trap else \
+            np.asarray(self._scheme.interior_tau)
+        a = self.seg_bounds[:-1][:, None]
+        dtau = np.diff(self.seg_bounds)[:, None]
+        pts_t = (self.t0 + (a + itau[None, :] * dtau) * T).ravel()
+        pts_l = lam_def.reshape(S * nI, self.XV)
+        ts = self.t0 + self.taus * T
+        if len(pts_t) == 1:
+            cost = np.broadcast_to(pts_l, (self.numNodes, self.XV)).copy()
+        else:
+            i1 = np.clip(np.searchsorted(pts_t, ts), 1, len(pts_t) - 1)
+            i0 = i1 - 1
+            w = ((ts - pts_t[i0]) / (pts_t[i1] - pts_t[i0]))[:, None]
+            cost = pts_l[i0] + w * (pts_l[i1] - pts_l[i0])
+        return [np.concatenate([cost[i], [ts[i]]])
+                for i in range(self.numNodes)]

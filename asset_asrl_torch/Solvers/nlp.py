@@ -27,9 +27,15 @@ class IndexedFunction:
     fun: callable (xloc (nin,), consts (nc,)) -> (nout,) on tensors.
     Vidx: (napps, nin) int array of global variable indices per application.
     consts: (napps, nc) float array of per-application constants.
+    in_scales (napps, nin), out_scales (napps, nout): auto-scaling.  The
+    variable units and row scales are folded into the function through
+    per-application constants, appended after the original consts, so every
+    consumer (dense and block assembly, residuals, sparsity probing) sees
+    the scaled problem: fun_scaled(g, c) = out * fun(in * g, c[:nc]).
     """
 
-    def __init__(self, fun, Vidx, consts=None, name="fun"):
+    def __init__(self, fun, Vidx, consts=None, name="fun", in_scales=None,
+                 out_scales=None):
         self.fun = fun
         self.Vidx = np.asarray(Vidx, dtype=np.int64)
         if self.Vidx.ndim != 2:
@@ -43,6 +49,24 @@ class IndexedFunction:
         if self.consts.shape[0] != self.napps:
             raise ValueError(f"{name}: consts rows != napps")
         self.name = name
+        if in_scales is not None or out_scales is not None:
+            nc0, nin = self.consts.shape[1], self.nin
+            ins = np.ones((self.napps, nin)) if in_scales is None \
+                else np.asarray(in_scales, np.float64)
+            cols = [self.consts, ins]
+            nout = 0
+            if out_scales is not None:
+                cols.append(np.asarray(out_scales, np.float64))
+                nout = cols[-1].shape[1]
+            self.consts = np.concatenate(cols, axis=1)
+            base = fun
+
+            def scaled(g, c):
+                out = torch.atleast_1d(base(c[nc0:nc0 + nin] * g, c[:nc0]))
+                if nout:
+                    out = c[nc0 + nin:nc0 + nin + nout] * out
+                return out
+            self.fun = fun = scaled
         # output width: one call on zeros
         out = fun(torch.zeros(self.nin, dtype=config.DTYPE,
                               device=config.DEVICE),

@@ -14,6 +14,7 @@ from . import config  # noqa: F401
 from . import VectorFunctions
 from . import Solvers
 from . import OptimalControl
+from . import Integrators
 from . import Astro
 
 __version__ = "0.2.0"

@@ -13,7 +13,8 @@ import numpy as np
 from . import config
 
 __all__ = ["state_from_numpy", "blocks_from_numpy",
-           "problem_tables_from_numpy", "iterate_of_problem"]
+           "problem_tables_from_numpy", "iterate_of_problem",
+           "phase_state_to_numpy", "load_phase_state"]
 
 
 def _f64(a, device):
@@ -56,3 +57,39 @@ def iterate_of_problem(problem, device=None):
     return state_from_numpy(np.asarray(make()), np.asarray(opt.LastSlacks),
                             np.asarray(opt.LastEqLmults),
                             np.asarray(opt.LastIqLmults), device)
+
+
+def phase_state_to_numpy(phase):
+    """What a solved phase of either package holds, as numpy arrays: the
+    trajectory rows [x, t, u], the normalized segment bounds, the ODE and
+    static parameters and the equality multipliers (None before a
+    solve)."""
+    lam = phase.optimizer.LastEqLmults
+    return dict(traj=np.array(phase._traj, np.float64),
+                seg_bounds=np.array(phase.seg_bounds, np.float64),
+                odeparams=np.array(phase._odeparams, np.float64),
+                static_params=np.array(phase._static_params, np.float64),
+                eq_mults=None if lam is None else np.array(lam, np.float64))
+
+
+def load_phase_state(phase, state):
+    """Put a state from `phase_state_to_numpy` into a phase built over the
+    same ODE and transcription: mesh, trajectory, parameters and equality
+    multipliers.  The phase re-transcribes at its next solve."""
+    bounds = np.array(state["seg_bounds"], np.float64)
+    traj = np.array(state["traj"], np.float64)
+    phase._numsegs = len(bounds) - 1
+    phase._node_structure(phase._numsegs, seg_bounds=bounds)
+    if traj.shape != (phase.numNodes, phase.XV + 1 + phase.UV):
+        raise ValueError(f"trajectory of shape {traj.shape} does not fit "
+                         f"{phase.numNodes} nodes")
+    phase._traj = traj
+    phase.t0, phase.tf = float(traj[0, phase.XV]), float(traj[-1, phase.XV])
+    phase._odeparams = np.array(state["odeparams"], np.float64)
+    phase._static_params = np.array(state["static_params"], np.float64)
+    phase.SPV = phase._static_params.size
+    if state["eq_mults"] is not None:
+        phase.optimizer.LastEqLmults = np.array(state["eq_mults"],
+                                                np.float64)
+    phase._need_transcribe = True
+    return phase

@@ -35,15 +35,32 @@ Phases, each of which ends the run with a non-zero exit on failure:
    `ocp.solve_optimize()`, and a bitwise repeatability check of one
    factorization;
 10. Delta III at 2500 segments per phase (10,004 nodes), with
-   time-to-solution, iterations/s and peak device memory.
+   time-to-solution, iterations/s and peak device memory;
+11. the integrator: 4096 seeded two-body rows over one period each with
+   DOPRI87 in one batched call (against the port's own CPU run of 16 of
+   them, the JAX package's numbers for 4 of them, and the closed orbit),
+   the state-transition matrices of 256 of them, and a batch of
+   periapsis-crossing stop events;
+12. the hypersensitive problem (LGL7, tf = 10000, MeshTol 1e-6) through
+   `phase.solve_optimize()` with the adaptive mesh on: every re-solve
+   factors another K;
+13. the adaptive-mesh Delta III (40 segments a phase to start, "deboor",
+   MeshTol 1e-7) through `ocp.solve_optimize()`, against the JAX package
+   and the published optimum;
+14. the three mesh-error estimators on the solved Delta III of phase 10
+   (10,004 nodes; "integrator" is one batched propagation of 2500
+   segments a phase), and an auto-scaled CartPole at 10,001 nodes with
+   unit 1 on every variable against the unscaled solve of phase 6.
 
 Every phase resets the K1 launch counts just before it drives its problem
 and reads them just after.  The line before the last two is a JSON object
 describing every kernel of the main path (narrow K1 launches from phase
-10, wide K1 launches from the 256-segment run of phase 8); then the
+10, wide K1 launches from the 256-segment run of phase 8, and under
+`launches_elsewhere` those of the solves of phases 12 to 14); then the
 card's name and power limit; the last line is the JSON device record.
 """
 
+import contextlib
 import gc
 import json
 import re
@@ -77,6 +94,15 @@ FORMATION = {8: (0, 3, 3.08847184948195, 13),
 # solve_optimize, final mass in kg)
 DELTA3 = {40: (0, 40, 7529.748664196064),
           2500: (0, 53, 7528.398909956162)}
+# the adaptive-mesh Delta III of `tests/test_delta3.py` (40 segments a
+# phase to start, "deboor", MeshTol 1e-7): (flag, final segments per
+# phase, final mass in kg).  The first estimate is already under the
+# tolerance in every phase, so no phase is refined.
+DELTA3_ADAPTIVE = (0, [40, 40, 40, 40], 7529.748664196064)
+DELTA3_PUBLISHED = 7529.749892668763
+# the hypersensitive problem of `tests/test_adaptivemesh.py`: (flag,
+# segments at each mesh estimate, objective)
+HYPERSENS = (0, [10, 59, 380, 1414], 1.6732960912289117)
 
 
 def cartpole_ode(ast):
@@ -99,14 +125,14 @@ def cartpole_ode(ast):
     return CartPole(l, m1, m2, g)
 
 
-def build_cartpole(ast, nsegs, tmode="LGL5", cmode=None):
+def build_cartpole(ast, nsegs, tmode="LGL5", cmode=None, u0=.0):
     """The CartPole swing-up phase of the repository's benchmark (LGL5,
-    default control mode unless `cmode` is given), built with either
-    package's namespace."""
+    default control mode unless `cmode` is given; `u0` is the control of
+    the initial guess), built with either package's namespace."""
     vf = ast.VectorFunctions
     tf, xf = 2.0, 1.0
     ts = np.linspace(0, tf, 100)
-    IG = [[xf * t / tf, np.pi * t / tf, 0, 0, t, .0] for t in ts]
+    IG = [[xf * t / tf, np.pi * t / tf, 0, 0, t, u0] for t in ts]
     phase = cartpole_ode(ast).phase(tmode, IG, nsegs)
     if cmode is not None:
         phase.setControlMode(cmode)
@@ -180,11 +206,12 @@ def build_formation(ast, nsegs):
 D3 = dict(Lstar=6378145, Tstar=961.0, Mstar=301454.0)
 
 
-def build_delta3(ast, nsegs):
-    """The 4-phase Delta III launch of `tests/test_delta3.py` on a fixed
-    mesh of `nsegs` LGL3 segments per phase (no adaptive mesh), with the
-    test's L1 line searches and MaxLSIters 2, built with either package's
-    namespace.  Returns (ocp, phases)."""
+def build_delta3(ast, nsegs, adaptive=False):
+    """The 4-phase Delta III launch of `tests/test_delta3.py` on a mesh of
+    `nsegs` LGL3 segments per phase, with the test's L1 line searches and
+    MaxLSIters 2, built with either package's namespace.  The mesh is
+    fixed, or with `adaptive` refined as in that test ("deboor" estimator,
+    MeshTol 1e-7, at most 4 mesh iterations).  Returns (ocp, phases)."""
     vf, oc = ast.VectorFunctions, ast.OptimalControl
     Args = vf.Arguments
     Lstar, Tstar, Mstar = D3["Lstar"], D3["Tstar"], D3["Mstar"]
@@ -306,7 +333,70 @@ def build_delta3(ast, nsegs):
     ocp.optimizer.set_OptLSMode("L1")
     ocp.optimizer.set_SoeLSMode("L1")
     ocp.optimizer.set_MaxLSIters(2)
+    if adaptive:
+        ocp.setAdaptiveMesh(True)
+        for p in phases:
+            p.MeshTol = 1e-7
+            p.MaxMeshIters = 4
+            p.MeshErrorEstimator = "deboor"
     return ocp, phases
+
+
+def two_body_ode(ast):
+    """The two-body problem (mu = 1), rows [r, v, t]."""
+    vf, oc = ast.VectorFunctions, ast.OptimalControl
+
+    class TwoBody(oc.ODEBase):
+        def __init__(self):
+            a = oc.ODEArguments(6, 0)
+            R, V = a.XVec().head3(), a.XVec().tail3()
+            super().__init__(vf.stack(V, -1.0 * R.normalized_power3()), 6)
+    return TwoBody()
+
+
+def two_body_rows(n, seed=11):
+    """Seeded bound two-body rows [r, v, t0 = 0] (eccentricity up to about
+    0.3, any inclination) and the period of each."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((n, 7))
+    r = 1.0 + 0.2 * rng.uniform(-1, 1, n)
+    rows[:, 0] = r
+    speed = np.sqrt(1.0 / r) * (1.0 + 0.15 * rng.uniform(-1, 1, n))
+    ang = rng.uniform(0, 2 * np.pi, n)
+    fpa = 0.2 * rng.uniform(-1, 1, n)
+    rows[:, 3] = speed * np.sin(fpa)
+    rows[:, 4] = speed * np.cos(fpa) * np.cos(ang)
+    rows[:, 5] = speed * np.cos(fpa) * np.sin(ang)
+    a = 1.0 / (2.0 / r - speed ** 2)
+    return rows, 2 * np.pi * a ** 1.5
+
+
+def build_hypersens(ast):
+    """The hypersensitive problem of `tests/test_adaptivemesh.py`: LGL7,
+    10 segments to start, tf = 10000, adaptive mesh with MeshTol 1e-6 and
+    the default "integrator" estimator."""
+    vf, oc = ast.VectorFunctions, ast.OptimalControl
+
+    class HyperSens(oc.ODEBase):
+        def __init__(self):
+            XtU = oc.ODEArguments(1, 1)
+            super().__init__(-XtU.XVar(0) + XtU.UVar(0), 1, 1)
+
+    xt0, xtf, tf = 1.5, 1.0, 10000.0
+    IG = [[xt0 * (1 - t / tf) + xtf * (t / tf), t, 0]
+          for t in np.linspace(0, tf, 1000)]
+    phase = HyperSens().phase("LGL7", IG, 10)
+    phase.addBoundaryValue("First", [0, 1], [xt0, 0])
+    phase.addBoundaryValue("Last", [0, 1], [xtf, tf])
+    phase.addIntegralObjective(vf.Arguments(2).squared_norm() / 2, [0, 2])
+    phase.addLUVarBound("Path", 0, -50, 50)
+    phase.addLUVarBound("Path", 2, -50, 50)
+    phase.optimizer.set_OptLSMode("L1")
+    phase.optimizer.set_SoeLSMode("L1")
+    phase.setAdaptiveMesh(True)
+    phase.setMeshTol(1.0e-6)
+    phase.setMaxMeshIters(8)
+    return phase
 
 
 def quasi_definite_blocks(K, W, seed, dtype):
@@ -638,7 +728,7 @@ def phase_slice5000(ast, ck):
     check(abs(obj - OBJ_5000) <= 1e-6 * OBJ_5000,
           "10,001-node objective off")
     check(launches > 0, "10,001-node solve never launched K1")
-    return launches
+    return obj
 
 
 def counted(ck, fn):
@@ -751,7 +841,238 @@ def phase_delta3_full(ast, ck):
           f"{opt.LastFuncTime:.3f} s, KKT factor+solve {opt.LastKKTTime:.3f} s")
     rmass = DELTA3[2500][2]
     check(abs(mass - rmass) <= 1e-6 * rmass, "Delta III 2500: final mass")
-    return launches
+    return launches, ocp.Phases
+
+
+# the JAX package's CPU result (DOPRI87, default step 0.1, AbsTol 1e-12) for
+# the first 4 rows of two_body_rows(4096), each over its own period
+TWO_BODY_JAX = np.array([
+    [8.5142808110691826e-01, 1.9683262318463770e-12, 8.8398449876160289e-13,
+     -4.1582191589047079e-02, 8.7888174656081530e-01, 3.9471144794300128e-01,
+     3.7169786330663501e+00],
+    [9.9971114497499658e-01, -4.3221075958526306e-12,
+     -1.3764257348266924e-12, 4.0496656580893839e-02, 9.9528846259146464e-01,
+     3.1696734859561798e-01, 7.2634680456883096e+00],
+    [1.0405993430501908e+00, 3.3684183021901267e-13, 1.6426816422977319e-12,
+     -1.6194179729347688e-01, 2.0051679106905462e-01, 9.7804063162506161e-01,
+     7.3715596992523862e+00],
+    [8.1147560334745783e-01, -7.9334022412544955e-14, 2.4311399666574400e-13,
+     6.6650112799040748e-02, -3.4934312380000310e-01, 1.0706006624774353e+00,
+     4.8281185191634144e+00]])
+
+
+def phase_integrator(ast):
+    """Phase 11: the batched adaptive integrator on the card."""
+    nrows, nstm, ncpu = 4096, 256, 16
+    rows, periods = two_body_rows(nrows)
+    integ = two_body_ode(ast).integrator("DOPRI87", 0.1)
+    dev_rows, dev_tfs = integ._rows(rows[:8], periods[:8])
+    out, _, _ = integ._advance(dev_rows, dev_tfs)
+    check(dev_rows.is_cuda and out.is_cuda,
+          "the integrator's tensors are not on the card")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xf = np.stack(integ.integrate_parallel(rows, periods))
+    secs = time.perf_counter() - t0
+    steps = integ.LastStepCount
+    print(f"integrator: {nrows} two-body rows over one period each, "
+          f"DOPRI87, AbsTol 1e-12: {secs:.3f} s, {nrows / secs:.1f} rows/s, "
+          f"{steps} steps in the longest row")
+    check(np.isfinite(xf).all(), "integrated rows are not finite")
+    closure = np.abs(xf[:, :6] - rows[:, :6]).max()
+    print(f"  orbits close to {closure:.3e} after one period")
+    check(closure < 1e-9, "the orbits do not close after one period")
+    ej = np.abs(xf[:4] - TWO_BODY_JAX).max()
+    print(f"  first 4 rows against the JAX package's CPU run: {ej:.3e}")
+    check(ej <= 1e-9, "integrated rows differ from the JAX package's")
+
+    # the same ODE built on the CPU, for the port's own CPU run
+    ast.config.use_device("cpu")
+    try:
+        cpu = two_body_ode(ast).integrator("DOPRI87", 0.1)
+        xc = np.stack(cpu.integrate_parallel(rows[:ncpu], periods[:ncpu]))
+        sc, Jc = cpu.integrate_stm(rows[0], periods[0])
+    finally:
+        ast.config.use_device("cuda")
+    ec = np.abs(xf[:ncpu] - xc).max()
+    print(f"  first {ncpu} rows against the port's CPU run: {ec:.3e}")
+    check(ec <= 1e-9, "integrated rows differ between the card and the CPU")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stm = integ.integrate_stm_parallel(rows[:nstm], periods[:nstm])
+    secs = time.perf_counter() - t0
+    J = np.stack([j for _, j in stm])
+    dets = np.linalg.det(J[:, :6, :6])
+    eJ = np.abs(J[0] - Jc).max() / np.abs(Jc).max()
+    print(f"  state-transition matrices of {nstm} rows: {secs:.3f} s, "
+          f"{nstm / secs:.1f} rows/s; |det - 1| up to "
+          f"{np.abs(dets - 1).max():.3e}; row 0 against the CPU run "
+          f"{eJ:.3e} relative")
+    check(np.isfinite(J).all() and J.shape == (nstm, 7, 7),
+          "state-transition matrices are not finite")
+    check(np.abs(dets - 1).max() < 1e-6,
+          "state-transition matrices are not volume preserving")
+    check(eJ <= 1e-8, "state-transition matrix differs between the card "
+          "and the CPU")
+
+    # events: from apoapsis, stop where r.v rises through zero (periapsis,
+    # half a period later)
+    nev = 32
+    rng = np.random.default_rng(12)
+    ra = 1.0 + 0.3 * rng.uniform(0, 1, nev)
+    va = np.sqrt(1.0 / ra) * (0.7 + 0.2 * rng.uniform(0, 1, nev))
+    ev_rows = np.zeros((nev, 7))
+    ev_rows[:, 0], ev_rows[:, 4] = ra, va
+    a = 1.0 / (2.0 / ra - va ** 2)
+    half = np.pi * a ** 1.5
+    A = ast.VectorFunctions.Arguments(7)
+    rdotv = A.head3().dot(A.segment3(3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = integ.integrate_dense_parallel(ev_rows, 3 * half, [(rdotv, 1, 1)],
+                                         nsteps=2)
+    secs = time.perf_counter() - t0
+    tstop = np.array([traj[-1][6] for traj, _ in res])
+    rstop = np.array([traj[-1][0] for traj, _ in res])
+    et = np.abs(tstop - half).max()
+    print(f"  periapsis-crossing stop events of {nev} rows: {secs:.3f} s, "
+          f"stop times off by up to {et:.3e}")
+    check(all(len(locs[0]) == 1 for _, locs in res),
+          "an orbit did not stop at its first periapsis")
+    check(et < 1e-8, "periapsis times are off")
+    check(np.abs(rstop + (2 * a - ra)).max() < 1e-7,
+          "periapsis positions are off")
+
+
+@contextlib.contextmanager
+def mesh_log():
+    """Record (segments, combined error) at every mesh-error estimate of
+    the adaptive loops run inside the block."""
+    from asset_asrl_torch.OptimalControl import mesh
+    seen = []
+    plain = mesh.segment_errors
+
+    def spy(phase):
+        errs = plain(phase)
+        seen.append((phase.numSegs,
+                     mesh._combine(errs, phase.MeshErrorCriteria)))
+        return errs
+    mesh.segment_errors = spy
+    try:
+        yield seen
+    finally:
+        mesh.segment_errors = plain
+
+
+def phase_hypersens(ast, ck):
+    """Phase 12: the hypersensitive problem with the adaptive mesh.  The
+    objective is held to 5e-5 relative: the last mesh is laid out by error
+    estimates that are rounding noise over the flat middle of the
+    trajectory, so its bounds, and with them the quadrature value it
+    converges to, differ in the sixth digit between two machines (JAX on a
+    CPU 1.673296, the port on a CPU 1.673286, on an H100 1.673283)."""
+    rflag, rsegs, robj = HYPERSENS
+    ph = build_hypersens(ast)
+    ph.optimizer.set_PrintLevel(2)
+    reset_peak_memory()
+    with mesh_log() as seen:
+        flag, n1, nw, secs = counted(ck, ph.solve_optimize)
+    obj = ph.optimizer.LastObjVal
+    for i, (segs, err) in enumerate(seen):
+        print(f"hypersensitive mesh iteration {i}: {segs} segments, error "
+              f"{err:.3e}")
+    print(f"hypersensitive adaptive: flag {flag}, {len(seen)} mesh "
+          f"estimates, final segments {ph.numSegs}, obj {obj:.15f}, "
+          f"{secs:.3f} s, K1 launches {n1} narrow / {nw} wide, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    check(flag == rflag and ph.MeshConverged, "hypersensitive: flag")
+    check([s for s, _ in seen] == rsegs,
+          f"hypersensitive: segments per mesh iteration {seen}")
+    check(abs(obj - robj) <= 5e-5 * robj, f"hypersensitive: objective {obj}")
+    check(n1 > 0, "hypersensitive: K1 never launched")
+    tab = ph.returnTrajTable()
+    check(all(t.is_cuda for t in tab._tensors()),
+          "the trajectory table's tensors are not on the card")
+    return n1, nw
+
+
+def phase_delta3_adaptive(ast, ck):
+    """Phase 13: the adaptive-mesh Delta III at the width of the upstream
+    regression."""
+    rflag, rsegs, rmass = DELTA3_ADAPTIVE
+    ocp, phases = build_delta3(ast, 40, adaptive=True)
+    ocp.optimizer.set_PrintLevel(2)
+    reset_peak_memory()
+    with mesh_log() as seen:
+        flag, n1, nw, secs = counted(ck, ocp.solve_optimize)
+    mass = phases[3].returnTraj()[-1][6] * D3["Mstar"]
+    segs = [p.numSegs for p in phases]
+    print(f"Delta III adaptive: flag {flag}, {len(seen) // 4} mesh "
+          f"iterations (errors {[f'{e:.3e}' for _, e in seen]}), segments "
+          f"{segs}, final mass {mass:.12f} kg "
+          f"({mass - DELTA3_PUBLISHED:+.6f} kg from the published optimum), "
+          f"time-to-solution {secs:.3f} s, K1 launches {n1} narrow / {nw} "
+          f"wide, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    check(flag == rflag, f"Delta III adaptive: flag {flag}")
+    check(segs == rsegs, f"Delta III adaptive: segments {segs}")
+    check(all(p.MeshConverged for p in phases),
+          "Delta III adaptive: mesh not converged")
+    check(abs(mass - rmass) <= 1e-7 * rmass, "Delta III adaptive: final mass")
+    check(abs(mass - DELTA3_PUBLISHED) < 0.01,
+          "Delta III adaptive: not within 0.01 kg of the published optimum")
+    check(n1 > 0, "Delta III adaptive: K1 never launched")
+    return n1, nw
+
+
+def phase_estimators(ast, ck, phases, obj_unscaled):
+    """Phase 14: the three mesh-error estimators at 10,004 nodes, and the
+    auto-scaled CartPole at 10,001 nodes."""
+    from asset_asrl_torch.OptimalControl import mesh
+    worst = {}
+    for est in ("deboor", "residual", "integrator"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        errs = []
+        for p in phases:
+            p.MeshErrorEstimator = est
+            errs.append(mesh.segment_errors(p))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        top = [float(e.max()) for e in errs]
+        worst[est] = int(np.argmax(top))
+        print(f"mesh estimator {est!r} on {sum(p.numNodes for p in phases)} "
+              f"nodes ({[p.numSegs for p in phases]} segments): {secs:.3f} s,"
+              f" largest error per phase {[f'{e:.3e}' for e in top]}")
+        check(all(np.isfinite(e).all() and e.shape == (p.numSegs,)
+                  for e, p in zip(errs, phases)),
+              f"estimator {est}: errors not finite")
+    check(len(set(worst.values())) == 1,
+          f"the estimators disagree on the worst phase: {worst}")
+
+    # Auto-scaling with unit 1 on every variable scales the rows only, so
+    # the physical objective is the unscaled solve's.  The guess holds a
+    # control of 1: with a control of 0 the integral objective has a zero
+    # Jacobian at the guess and gets the largest scale there is, in the JAX
+    # package too.  Both solves stop at a KKT error of 1e-6, which pins the
+    # objective to about 1e-8: the check is 1e-7 relative.
+    ph = build_cartpole(ast, 5000, u0=1.0)
+    ph.setAutoScaling(True)
+    ph.setUnits(np.ones(6))
+    ph.optimizer.set_PrintLevel(2)
+    flag, n1, nw, secs = counted(ck, ph.optimize)
+    obj = ph.optimizer.LastObjVal
+    print(f"auto-scaled CartPole ({ph.numNodes} nodes, unit 1): flag {flag} "
+          f"iters {ph.optimizer.LastIterNum} obj {obj:.15f} (unscaled "
+          f"{obj_unscaled:.15f}, objective scale {ph._obj_scale:.6e}), "
+          f"{secs:.3f} s, K1 launches {n1}")
+    check(flag == 0, "auto-scaled CartPole did not converge")
+    check(abs(obj - obj_unscaled) <= 1e-7 * obj_unscaled,
+          "auto-scaled CartPole: objective differs from the unscaled one")
+    check(n1 > 0, "auto-scaled CartPole never launched K1")
+    return n1, nw
 
 
 def main():
@@ -779,13 +1100,22 @@ def main():
     k1 = phase_kernel(ck)
     phase_bcr(kb)
     phase_slice40(ast, ck)
-    phase_slice5000(ast, ck)
+    obj_5000 = phase_slice5000(ast, ck)
     phase_breadth(ast, ck)
     wide = {n: phase_formation(ast, ck, n) for n in (80, 256, 512)}[256]
     phase_delta3_40(ast, ck)
-    narrow = phase_delta3_full(ast, ck)
+    narrow, d3_phases = phase_delta3_full(ast, ck)
+    phase_integrator(ast)
+    adaptive = {"hypersensitive, adaptive mesh": phase_hypersens(ast, ck),
+                "Delta III, adaptive mesh": phase_delta3_adaptive(ast, ck)}
+    adaptive["auto-scaled CartPole, 10,001 nodes"] = phase_estimators(
+        ast, ck, d3_phases, obj_5000)
 
     launches = {"gj_inverse": narrow, "gj_inverse_wide": wide}
+    # the launches of the solves of phases 12 to 14 (their borders stay
+    # under the wide kernel's widths)
+    more = {"gj_inverse": {k: n for k, (n, _) in adaptive.items()},
+            "gj_inverse_wide": {k: n for k, (_, n) in adaptive.items()}}
     source = {"gj_inverse": "asset_asrl_torch/csrc/gj_inverse.cu",
               "gj_inverse_wide": "asset_asrl_torch/csrc/gj_inverse_wide.cu"}
 
@@ -795,7 +1125,8 @@ def main():
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=source[name],
         replaces="asset_asrl_tpu/Solvers/pallas_kernels.py:103",
-        launches=launches[name], launches_from=run, shape=[K, W, W],
+        launches=launches[name], launches_from=run,
+        launches_elsewhere=more[name], shape=[K, W, W],
         **k1[(K, W)], shapes=shapes_of(W > ck.MAX_W))
         for (K, W), (name, run) in K1_MAIN.items()]}))
     print(smi)

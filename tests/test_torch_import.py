@@ -28,10 +28,53 @@ def test_import_leaves_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+WALK = """
+import importlib, pkgutil, sys
+import asset_asrl_torch
+names = ["asset_asrl_torch"] + [m.name for m in pkgutil.walk_packages(
+    asset_asrl_torch.__path__, "asset_asrl_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m.startswith("jaxlib") or m.startswith("asset_asrl_tpu")]
+print(len(names), sorted(names))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+NEW_MODULES = ["asset_asrl_torch.Integrators", "asset_asrl_torch.Integrators.rk",
+               "asset_asrl_torch.OptimalControl.mesh",
+               "asset_asrl_torch.OptimalControl.interp_table",
+               "asset_asrl_torch.OptimalControl.fdtable"]
+
+
+def test_every_module_imports_without_jax():
+    """Every module of the port, imported one by one in a fresh
+    interpreter, leaves jax and the JAX package out of sys.modules."""
+    r = subprocess.run([sys.executable, "-c", WALK], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    walked = r.stdout.splitlines()[0]
+    for name in NEW_MODULES:
+        assert f"'{name}'" in walked, name
+
+
+def test_chip_smoke_imports_without_jax():
+    code = ("import sys, chip_smoke; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m.startswith('jaxlib') "
+            "or m.startswith('asset_asrl_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_no_jax_import_in_sources():
     pat = re.compile(r"^\s*(import\s+(jax|jaxlib|asset_asrl_tpu)\b|"
                      r"from\s+(jax|jaxlib|asset_asrl_tpu)\b)", re.M)
-    files = sorted((ROOT / "asset_asrl_torch").rglob("*.py"))
-    assert files
+    files = sorted((ROOT / "asset_asrl_torch").rglob("*.py")) \
+        + [ROOT / "chip_smoke.py"]
+    assert len(files) > 1
     offenders = [str(p) for p in files if pat.search(p.read_text())]
     assert not offenders, offenders

@@ -13,7 +13,10 @@ the JAX package's.
   residual and the assembled KKT blocks (Jacobians and Hessians) through
   the JAX package's jitted evaluators;
 * the Delta III solve itself (slow: ~1 minute on the CPU; `chip_smoke.py`
-  runs it on the card).
+  runs it on the card), and the adaptive-mesh Delta III of
+  `tests/test_delta3.py` (slow);
+* an index-selected link on an ODEParams region, and the multi-phase
+  adaptive loop and its setters on a small problem.
 """
 
 import jax
@@ -27,7 +30,8 @@ import asset_asrl_torch as tast
 from asset_asrl_tpu.Solvers import nlp as jnlp
 from asset_asrl_torch.interop import iterate_of_problem
 from asset_asrl_torch.Solvers import nlp as tnlp
-from chip_smoke import D3, DELTA3, FORMATION, build_delta3, build_formation
+from chip_smoke import (D3, DELTA3, DELTA3_ADAPTIVE, FORMATION, build_delta3,
+                        build_formation)
 
 torch.set_num_threads(2)
 # the port's tests run on the CPU, also on a machine with a card (the
@@ -318,3 +322,122 @@ def test_delta3_solve_40():
     assert ocp.optimizer.LastIterNum == it0
     mass = phases[3].returnTraj()[-1][6] * D3["Mstar"]
     assert abs(mass - mass0) <= 1e-7 * mass0
+
+
+@pytest.mark.slow
+def test_delta3_adaptive():
+    """`tests/test_delta3.py::test_delta3_launch` in the port: the JAX host
+    loop's flag, per-phase final segment counts and final mass, which is
+    within 0.01 kg of the published optimum."""
+    flag0, segs0, mass0 = DELTA3_ADAPTIVE
+    ocp, phases = build_delta3(tast, 40, adaptive=True)
+    ocp.optimizer.set_PrintLevel(2)
+    assert ocp.solve_optimize() == flag0 == CONVERGED
+    assert [p.numSegs for p in phases] == segs0
+    mass = phases[3].returnTraj()[-1][6] * D3["Mstar"]
+    assert abs(mass - mass0) <= 1e-7 * mass0
+    assert abs(mass - 7529.749892668763) < 0.01
+
+
+def _param_linked(ast, form):
+    """Two phases with one ODE parameter each (the control's gain), the
+    first pinned to 1.5, and a link that makes the second equal to it."""
+    vf, oc = ast.VectorFunctions, ast.OptimalControl
+
+    class Gain(oc.ODEBase):
+        def __init__(self):
+            a = oc.ODEArguments(2, 1, 1)
+            super().__init__(vf.stack([a.XVar(1), a.UVar(0) * a.PVar(0)]),
+                             2, 1, 1)
+
+    def phase(xf, p):
+        IG = [[xf * t, xf, t, 0.0, p] for t in np.linspace(0, 1, 10)]
+        ph = Gain().phase("LGL3", IG, 6)
+        ph.addBoundaryValue("Front", [0, 1, 2], [0, 0, 0])
+        ph.addBoundaryValue("Back", [0, 1, 2], [xf, 0, 1])
+        ph.addIntegralObjective(vf.Arguments(1)[0] ** 2, [3])
+        return ph
+
+    pa, pb = phase(1.0, 1.0), phase(2.0, 3.0)
+    pa.addBoundaryValue("ODEParams", [0], [1.5])
+    ocp = oc.OptimalControlProblem()
+    ocp.addPhase(pa)
+    ocp.addPhase(pb)
+    A = vf.Arguments(2)
+    if form == "indexed":
+        ocp.addLinkEqualCon(A[0] - A[1], [(pa, "ODEParams", [], [0], []),
+                                          (pb, "ODEParams", [], [0], [])],
+                            [])
+    else:
+        ocp.addLinkEqualCon(A[0] - A[1], pa, "ODEParams", pb, "ODEParams")
+    return quiet(ocp), pa, pb
+
+
+def test_indexed_link_on_odeparams_region():
+    """An index-selected link on an ODEParams region.  The JAX package
+    decodes the two gathered parameters through the node layout, reads
+    past them (its out-of-range reads clamp) and ends with the second
+    parameter on both sides: a row that is identically zero, so the link
+    is lost without an error.  The port reads the parameter vector itself
+    and gives what the JAX package gives for the same link written in the
+    region form, which it decodes as parameters."""
+    oj, _, _ = _param_linked(jast, "indexed")
+    oj.transcribe()
+    fam = oj._nlp.eqcons[-1]
+    g = jnp.asarray(oj._make_input()[fam.Vidx[0]])
+    c = jnp.asarray(fam.consts[0])
+    assert np.asarray(g).tolist() == [1.0, 3.0]
+    assert float(jax.jit(fam.fun)(g, c)[0]) == 0.0
+    assert not np.asarray(jax.jit(jax.jacfwd(fam.fun))(g, c)).any()
+
+    ot, pa, pb = _param_linked(tast, "indexed")
+    ot.transcribe()
+    famt = ot._nlp.eqcons[-1]
+    assert np.array_equal(famt.Vidx, fam.Vidx)
+    gt = tast.config.tensor([1.0, 3.0])
+    ct = tast.config.tensor(famt.consts[0])
+    assert float(famt.fun(gt, ct)[0]) == -2.0
+    close(torch.func.jacfwd(famt.fun)(gt, ct).numpy(), [[1.0, -1.0]])
+
+    rj, qa, qb = _param_linked(jast, "region")
+    assert rj.optimize() == ot.optimize() == CONVERGED
+    assert abs(pb._odeparams[0] - 1.5) < 1e-8 \
+        and abs(qb._odeparams[0] - 1.5) < 1e-8
+    assert abs(ot.optimizer.LastIterNum - rj.optimizer.LastIterNum) <= 1
+    close(ot.optimizer.LastObjVal, rj.optimizer.LastObjVal, 1e-8)
+    close(np.asarray(pb.returnTraj()), np.asarray(qb.returnTraj()), 1e-7)
+
+
+def test_ocp_adaptive_loop_and_setters(monkeypatch):
+    """The multi-phase adaptive loop on formation flying without its link
+    (the PathToPath link needs equal node counts): both packages refine
+    the same phases to the same segment counts and objective."""
+    from asset_asrl_tpu.OptimalControl import mesh as jmesh
+    from asset_asrl_torch.OptimalControl import mesh as tmesh
+    out = []
+    for ast, module in ((jast, jmesh), (tast, tmesh)):
+        ocp, pa, pb = build_formation(ast, 6)
+        ocp._link_specs.clear()
+        quiet(ocp)
+        ocp.setAdaptiveMesh(True)
+        ocp.setMeshTol(1e-9)
+        for p in (pa, pb):
+            p.setMeshErrorEstimator("deboor")
+            p.setMaxMeshIters(2)
+        assert pa.AdaptiveMesh and pb.MeshTol == 1e-9
+        ocp.setThreads(2)
+        ocp.PrintMeshInfo()
+        ocp.setJetJobMode("optimize")
+        calls = []
+        orig = module.update_mesh
+        monkeypatch.setattr(module, "update_mesh",
+                            lambda p, e, o=orig, c=calls:
+                            (c.append(p.numSegs), o(p, e))[1])
+        flag = ocp.jet_run()
+        out.append((flag, calls, pa.numSegs, pb.numSegs,
+                    ocp.optimizer.LastObjVal, pa.MeshConverged))
+    (fj, cj, aj, bj, oj, mj), (ft, ct, at, bt, ot, mt) = out
+    assert ft == fj == CONVERGED
+    assert ct == cj and len(ct) >= 2
+    assert (at, bt, mt) == (aj, bj, mj) and at > 6
+    close(ot, oj, 1e-8)
