@@ -19,7 +19,15 @@ PSIOPT's perturbation ladder.
 
 Assembly is deterministic: every KKT array (diag, lower, B, C) and every
 gradient (rd, J_I^T v) is a static gather table over one value buffer plus
-a sum.  `index_add` is used only where the target rows are distinct.
+a sum; the few shared border columns are added by an indexed assignment
+at distinct ids.
+
+Everything from the family AD to the solve carries a leading lane axis:
+B problems of one structure (a scenario batch) evaluate, assemble, factor
+and solve together, every BCR level of every lane in one K1 launch.  One
+problem is B = 1 of the same code; only the host loop's public methods
+(`eval_resid`, `factor`, `solve`, `iq_matvec`, `iq_rmatvec`) take it
+without the lane axis.
 """
 
 from __future__ import annotations
@@ -320,78 +328,107 @@ class BlockStructure:
 # ===========================================================================
 
 def _zpad(x, before, after):
-    """Pad the leading axis of x with `before` / `after` zero slices."""
+    """Pad axis 1 (the chain axis, after the batch axis) of x with
+    `before` / `after` zero slices."""
     parts = []
     if before > 0:
-        parts.append(x.new_zeros((before,) + tuple(x.shape[1:])))
+        parts.append(x.new_zeros((x.shape[0], before) + tuple(x.shape[2:])))
     parts.append(x)
     if after > 0:
-        parts.append(x.new_zeros((after,) + tuple(x.shape[1:])))
-    return torch.cat(parts) if len(parts) > 1 else x
+        parts.append(x.new_zeros((x.shape[0], after) + tuple(x.shape[2:])))
+    return torch.cat(parts, 1) if len(parts) > 1 else x
 
 
 def _mv(A, v):
-    """(K,a,b) @ (K,b) -> (K,a)."""
+    """(..., a, b) @ (..., b) -> (..., a).
+
+    One lane's root and border products, (1, a, b), go through a plain
+    matrix-vector product, several lanes' through one batched product.
+    Each single form tried breaks a host-loop parity the plain product
+    keeps: a batched product of one matrix moves the auto-scaled
+    three-phase Goddard problem (CPU) from the JAX package's 26 iterations
+    to 32, and a product and a sum over the last axis moves Delta III at
+    10,004 nodes (H100) from 53 iterations to 44.  So an ensemble lane
+    may round unlike its solo solve (`test_torch_parallel.py` bounds
+    it)."""
+    if A.dim() == 3 and A.shape[0] == 1:
+        return (A[0] @ v[0])[None]
     return (A @ v.unsqueeze(-1)).squeeze(-1)
 
 
+def _mv_shared(A, v):
+    """(B, K, a, b) @ (B, b) -> (B, K, a): each lane's K matrices times
+    that lane's one vector (one lane: the plain product, as `_mv`)."""
+    if A.shape[0] == 1:
+        return (A[0] @ v[0])[None]
+    return (A @ v[:, None, :, None]).squeeze(-1)
+
+
 def _mv_t(A, v):
-    """(K,b,a)^T @ (K,b) -> (K,a)."""
-    return (A.transpose(1, 2) @ v.unsqueeze(-1)).squeeze(-1)
+    """(..., b, a)^T @ (..., b) -> (..., a) (one lane: as `_mv`)."""
+    if A.dim() == 3 and A.shape[0] == 1:
+        return (A[0].T @ v[0])[None]
+    return (A.transpose(-1, -2) @ v.unsqueeze(-1)).squeeze(-1)
 
 
 def _inv_sym(D):
     """Batched symmetric inverse + negative-pivot inertia count, through
     kernel K1.
 
-    Singular or non-finite pivots count as inertia failures, so the
-    solver's perturbation ladder engages; with delta/gamma regularization
-    every macro block is quasi-definite and elimination is clean.  The
-    count is a pure sign count (no relative pivot threshold), as on the
-    JAX package's CPU path.  K1 counts the bad pivots per block and zeroes
-    the non-finite entries of the inverse itself; the sum stays on the
-    device."""
-    Dinv, _, nbad = gj_inverse_inertia(D.contiguous())
-    return Dinv, nbad.sum()
+    D is (B, Ke, W, W): every block of every lane goes through ONE K1
+    launch; the bad-pivot count is summed over the Ke axis, one count per
+    lane.  Singular or non-finite pivots count as inertia failures, so
+    the solver's perturbation ladder engages; with delta/gamma
+    regularization every macro block is quasi-definite and elimination is
+    clean.  The count is a pure sign count (no relative pivot threshold),
+    as on the JAX package's CPU path.  K1 counts the bad pivots per block
+    and zeroes the non-finite entries of the inverse itself; the sums stay
+    on the device."""
+    lead, W = D.shape[:-2], D.shape[-1]
+    Dinv, _, nbad = gj_inverse_inertia(D.reshape(-1, W, W).contiguous())
+    return Dinv.reshape(D.shape), nbad.view(lead).sum(-1)
 
 
 def bcr_factor(diag, lower, Bmat, C):
-    """Compacted block cyclic reduction of [T, B; B^T, C].
+    """Compacted block cyclic reduction of [T, B; B^T, C] for a batch of
+    B problems of one structure (a leading lane axis; one problem is
+    B = 1).
 
-    diag (K,W,W) symmetric; lower (K,W,W) with lower[k] = K[k+1,k]
-    (entry K-1 unused); Bmat (K,W,b); C (b,b).  Each level halves the
-    chain: the odd blocks are inverted as one batch (K1) and eliminated
-    with two batched products.  Returns (fac, neigs); neigs (a 0-d tensor)
-    is the count of negative eigenvalues of the full matrix."""
-    K, W, _ = diag.shape
-    b = C.shape[0]
-    neigs = torch.zeros((), dtype=torch.int64, device=diag.device)
+    diag (B,K,W,W) symmetric; lower (B,K,W,W) with lower[:, k] =
+    K[k+1,k] (entry K-1 unused); Bmat (B,K,W,b); C (B,b,b).  Each level
+    halves the chain: the odd blocks of every lane are inverted as one
+    batch (one K1 launch) and eliminated with two batched products.
+    Returns (fac, neigs): the factor and the count of negative eigenvalues
+    of each lane's matrix (B,)."""
+    Bn, K, W, _ = diag.shape
+    b = C.shape[-1]
+    neigs = torch.zeros((Bn,), dtype=torch.int64, device=diag.device)
     levels = []
     d, l, B = diag, lower, Bmat
-    while d.shape[0] > 1:
-        Ka = d.shape[0]
+    while d.shape[1] > 1:
+        Ka = d.shape[1]
         Ke = Ka // 2
         Kn = Ka - Ke
         dpad = _zpad(d, 0, 1)
         lpad = _zpad(l, 0, 2)
         Bpad = _zpad(B, 0, 1)
-        d_even = dpad[0::2][:Kn]
-        d_odd = dpad[1::2][:Ke]
-        L_le = lpad[0::2][:Ke]          # K[2i+1, 2i]
-        L_er = lpad[1::2][:Ke]          # K[2i+2, 2i+1]
-        B_even = Bpad[0::2][:Kn]
-        B_odd = Bpad[1::2][:Ke]
+        d_even = dpad[:, 0::2][:, :Kn]
+        d_odd = dpad[:, 1::2][:, :Ke]
+        L_le = lpad[:, 0::2][:, :Ke]          # K[2i+1, 2i]
+        L_er = lpad[:, 1::2][:, :Ke]          # K[2i+2, 2i+1]
+        B_even = Bpad[:, 0::2][:, :Kn]
+        B_odd = Bpad[:, 1::2][:, :Ke]
 
         Dinv, neg = _inv_sym(d_odd)
         neigs = neigs + neg
         levels.append(dict(Dinv=Dinv, L_le=L_le, L_er=L_er, B_odd=B_odd))
 
         def overlap2(base, at0, at1):
-            """base (Kn,...) - at0 placed at [0:Ke] - at1 placed at
+            """base (B,Kn,...) - at0 placed at [0:Ke] - at1 placed at
             [1:Ke+1] (entries beyond Kn dropped)."""
-            out = base - _zpad(at0[:Kn], 0, Kn - min(Ke, Kn))
-            a1 = at1[:Kn - 1]
-            return out - _zpad(a1, 1, Kn - 1 - a1.shape[0])
+            out = base - _zpad(at0[:, :Kn], 0, Kn - min(Ke, Kn))
+            a1 = at1[:, :Kn - 1]
+            return out - _zpad(a1, 1, Kn - 1 - a1.shape[1])
 
         # Packed elimination: every Schur update of the level comes from
         # two batched products.  X = [L_le^T; L_er; B_odd^T] (Ke, 2W+b, W),
@@ -402,89 +439,92 @@ def bcr_factor(diag, lower, Bmat, C):
         #   Z[:W,  2W:]  = L_le^T Dinv B_odd  (B update, left)
         #   Z[W:2W,2W:]  = L_er  Dinv B_odd   (B update, right)
         #   Z[2W:, 2W:]  = B_odd^T Dinv B_odd (border C update)
-        X = torch.cat([L_le.transpose(1, 2), L_er, B_odd.transpose(1, 2)],
-                      dim=1)
-        R = torch.cat([L_le, L_er.transpose(1, 2), B_odd], dim=2)
+        X = torch.cat([L_le.transpose(-1, -2), L_er,
+                       B_odd.transpose(-1, -2)], dim=2)
+        R = torch.cat([L_le, L_er.transpose(-1, -2), B_odd], dim=3)
         Z = (X @ Dinv) @ R
-        d_new = overlap2(d_even, Z[:, :W, :W], Z[:, W:2 * W, W:2 * W])
+        d_new = overlap2(d_even, Z[:, :, :W, :W], Z[:, :, W:2 * W, W:2 * W])
         if b > 0:
-            B_new = overlap2(B_even, Z[:, :W, 2 * W:],
-                             Z[:, W:2 * W, 2 * W:])
-            C = C - Z[:, 2 * W:, 2 * W:].sum(0)
+            B_new = overlap2(B_even, Z[:, :, :W, 2 * W:],
+                             Z[:, :, W:2 * W, 2 * W:])
+            C = C - Z[:, :, 2 * W:, 2 * W:].sum(1)
         else:
             B_new = B_even
 
-        l_new = -Z[:, W:2 * W, :W]
+        l_new = -Z[:, :, W:2 * W, :W]
         if Kn > 1:
-            l_new = l_new[:Kn - 1] if l_new.shape[0] >= Kn - 1 else \
-                _zpad(l_new, 0, Kn - 1 - l_new.shape[0])
+            l_new = l_new[:, :Kn - 1] if l_new.shape[1] >= Kn - 1 else \
+                _zpad(l_new, 0, Kn - 1 - l_new.shape[1])
         else:
-            l_new = l.new_zeros((1, W, W))
+            l_new = l.new_zeros((Bn, 1, W, W))
         d, l, B = d_new, l_new, B_new
 
-    # final single block + border Schur complement
+    # final single block + border Schur complement (the border of every
+    # lane in one K1 launch)
     Dinv0, neg0 = _inv_sym(d)
     neigs = neigs + neg0
-    D0inv = Dinv0[0]
-    C_schur = C - B[0].T @ D0inv @ B[0]
+    D0inv = Dinv0[:, 0]
+    B0 = B[:, 0]
+    C_schur = C - B0.transpose(-1, -2) @ D0inv @ B0
     if b > 0:
-        Cinv1, negC = _inv_sym(C_schur[None])
+        Cinv1, negC = _inv_sym(C_schur[:, None])
         neigs = neigs + negC
-        Cinv = Cinv1[0]
+        Cinv = Cinv1[:, 0]
     else:
-        Cinv = diag.new_zeros((0, 0))
-    return dict(levels=levels, D0inv=D0inv, B0=B[0], Cinv=Cinv), neigs
+        Cinv = diag.new_zeros((Bn, 0, 0))
+    return dict(levels=levels, D0inv=D0inv, B0=B0, Cinv=Cinv), neigs
 
 
 def bcr_reduce_rhs(fac, rhs_blocks, rhs_border):
-    """Forward sweep: reduce the banded rhs onto the root block + border.
-    Returns (stack of eliminated odd rhs per level, root rhs (W,), reduced
-    border rhs)."""
+    """Forward sweep: reduce the banded rhs (B,K,W) onto the root block +
+    border.  Returns (stack of eliminated odd rhs per level, root rhs
+    (B,W), reduced border rhs (B,b))."""
     r = rhs_blocks
     rb = rhs_border
     stack = []
     for lev in fac["levels"]:
-        Ka = r.shape[0]
-        Ke = lev["Dinv"].shape[0]
+        Ka = r.shape[1]
+        Ke = lev["Dinv"].shape[1]
         Kn = Ka - Ke
         rpad = _zpad(r, 0, 1)
-        r_even = rpad[0::2][:Kn]
-        r_odd = rpad[1::2][:Ke]
+        r_even = rpad[:, 0::2][:, :Kn]
+        r_odd = rpad[:, 1::2][:, :Ke]
         stack.append(r_odd)
         t = _mv(lev["Dinv"], r_odd)
-        a0 = _mv_t(lev["L_le"], t)[:Kn]
-        a1 = _mv(lev["L_er"], t)[:Kn - 1]
-        r = r_even - _zpad(a0, 0, Kn - a0.shape[0]) \
-            - _zpad(a1, 1, Kn - 1 - a1.shape[0])
-        rb = rb - (lev["B_odd"] * t[:, :, None]).sum((0, 1))
-    rb = rb - fac["B0"].T @ (fac["D0inv"] @ r[0])
-    return stack, r[0], rb
+        a0 = _mv_t(lev["L_le"], t)[:, :Kn]
+        a1 = _mv(lev["L_er"], t)[:, :Kn - 1]
+        r = r_even - _zpad(a0, 0, Kn - a0.shape[1]) \
+            - _zpad(a1, 1, Kn - 1 - a1.shape[1])
+        rb = rb - (lev["B_odd"] * t[..., None]).sum((1, 2))
+    rb = rb - _mv_t(fac["B0"], _mv(fac["D0inv"], r[:, 0]))
+    return stack, r[:, 0], rb
 
 
 def bcr_backsub(fac, stack, r_root, z):
-    """Back-substitution with a given border solution z."""
-    W = r_root.shape[0]
-    y = (fac["D0inv"] @ (r_root - fac["B0"] @ z))[None, :]
+    """Back-substitution with a given border solution z (B,b)."""
+    Bn, W = r_root.shape
+    y = _mv(fac["D0inv"], r_root - _mv(fac["B0"], z))[:, None]
     for lev, r_odd in zip(reversed(fac["levels"]), reversed(stack)):
-        Ke = lev["Dinv"].shape[0]
-        Kn = y.shape[0]
+        Ke = lev["Dinv"].shape[1]
+        Kn = y.shape[1]
         Ka = Kn + Ke
         ypad = _zpad(y, 0, 1)
-        contrib = r_odd - _mv(lev["L_le"], y[:Ke]) \
-            - _mv_t(lev["L_er"], ypad[1:Ke + 1])
-        if z.shape[0] > 0:
-            contrib = contrib - lev["B_odd"] @ z
+        contrib = r_odd - _mv(lev["L_le"], y[:, :Ke]) \
+            - _mv_t(lev["L_er"], ypad[:, 1:Ke + 1])
+        if z.shape[1] > 0:
+            contrib = contrib - _mv_shared(lev["B_odd"], z)
         y_odd = _mv(lev["Dinv"], contrib)
         # interleave even/odd without scatter: stack + reshape
         y_odd_p = _zpad(y_odd, 0, Kn - Ke)
-        y = torch.stack([y, y_odd_p], dim=1).reshape(2 * Kn, W)[:Ka]
+        y = torch.stack([y, y_odd_p], dim=2).reshape(Bn, 2 * Kn, W)[:, :Ka]
     return y
 
 
 def bcr_solve(fac, rhs_blocks, rhs_border):
-    """Solve [T,B;B^T,C][y;z]=[r;rb] using bcr_factor output."""
+    """Solve [T,B;B^T,C][y;z]=[r;rb] with the bcr_factor output, for every
+    lane: rhs_blocks (B,K,W), rhs_border (B,b)."""
     stack, r_root, rb = bcr_reduce_rhs(fac, rhs_blocks, rhs_border)
-    z = fac["Cinv"] @ rb if fac["Cinv"].shape[0] > 0 else rb
+    z = _mv(fac["Cinv"], rb) if fac["Cinv"].shape[-1] > 0 else rb
     y = bcr_backsub(fac, stack, r_root, z)
     return y, z
 
@@ -553,14 +593,24 @@ def _grad_plan(fams, n, uvar_macro):
     return _build_table(gpairs, n, goff), border
 
 
-def _apply_grad_plan(table, border, parts):
+def _apply_grad_plan(table, border, parts, nlanes):
+    """Sum per-family (B, napps, nin) arrays into (B, n) through the plan.
+    The shared border columns land at distinct ids, so an indexed
+    assignment adds each exactly once (no index_add, deterministic)."""
     dev = table.device
-    buf = torch.cat([p.reshape(-1) for p in parts]
-                    + [torch.zeros(1, dtype=config.DTYPE, device=dev)])
-    out = buf[table].sum(-1)
+    buf = torch.cat([p.reshape(nlanes, -1) for p in parts]
+                    + [torch.zeros((nlanes, 1), dtype=config.DTYPE,
+                                   device=dev)], 1)
+    out = buf[:, table].sum(-1)
     for i, cols, ids in border:
-        out = out.index_add(0, ids, parts[i][:, cols].sum(0))
+        out[:, ids] = out[:, ids] + parts[i][:, :, cols].sum(1)
     return out
+
+
+def _lanes(x):
+    """(B, napps, ...) -> (B*napps, ...): every lane's applications as
+    rows of one family batch."""
+    return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
 # ===========================================================================
@@ -570,14 +620,18 @@ def _apply_grad_plan(table, border, parts):
 class BlockKKT:
     """KKT provider over the block-tridiagonal+border structure.
 
+    One problem (the host loop's interface):
       eval_resid(x, lamE, lamI, sigma) -> (obj, rd, cE, cI, rd)
       factor(x, lamE, lamI, sigma, sig_tilde, delta, gammaE) -> (fac, neigs)
       solve(fac, rhs_x, rhs_E) -> (dx, dlamE)
       iq_matvec(fac, dx) -> J_I dx ;  iq_rmatvec(fac, v) -> J_I^T v
 
-    Internally: `_eval_core` (one vmapped f/J/adjoint-H pass over every
-    family), `_blocks_impl` (gather-table assembly of diag, lower, B, C),
-    `_factor_blocks_impl` (regularize + block cyclic reduction).
+    The functional pieces the fused loop and the ensembles call, on state
+    with a leading lane axis (x (B, n), ...): `_eval_core` (one vmapped
+    f/J/adjoint-H pass over every family), `_resid_impl`, `_blocks_impl`
+    (gather-table assembly of diag, lower, B, C), `_factor_blocks_impl`
+    (regularize + block cyclic reduction, delta per lane), `_factor_impl`,
+    `_solve_impl`, `_iq_matvec_impl`, `_iq_rmatvec_impl`.
     """
 
     def __init__(self, nlp, node_of_var, probe_seed=7, x0=None):
@@ -756,135 +810,191 @@ class BlockKKT:
     # --------------------------------------------------- family evaluation
     def _eval_core(self, x, lamE, lamI, sigma, consts, want_hess):
         """One vmapped pass over every family: values + Jacobians (+
-        adjoint Hessians when `want_hess`), assembled into obj/cE/cI/rd by
-        concatenation and gather tables."""
+        adjoint Hessians when `want_hess` is True; structural zeros when it
+        is "zeros", the first-order passes), assembled into obj/cE/cI/rd by
+        concatenation and gather tables.
+
+        x (B, n), lamE (B, mE), lamI (B, mI): B lanes of one structure.
+        Each family runs once over the (B*napps) rows of every lane's
+        applications; the consts are shared by every lane."""
         ocon, econ, icon = consts
+        Bn = x.shape[0]
+        dev = self.device
         famvals = dict(jx_eq=[], hx_eq=[], jx_iq=[], hx_iq=[], hx_obj=[])
         g2d = []
         ce, ci = [], []
-        obj = torch.zeros((), dtype=config.DTYPE, device=self.device)
+        obj = torch.zeros((Bn,), dtype=config.DTYPE, device=dev)
 
         def one(fam, cc, lam):
-            xg = x[fam["Vidx_t"]]
-            fx, jx = fam["vj"](xg, cc)
-            g = (jx * lam[:, :, None]).sum(1)
-            hx = fam["hess"](xg, cc, lam) \
-                if want_hess and fam["need_hess"] else None
-            return fx, g, jx, hx
+            napps, nin = fam["napps"], fam["nin"]
+            xg = _lanes(x[:, fam["Vidx_t"]])
+            cb = cc.repeat(Bn, 1)
+            lb = _lanes(lam)
+            fx, jx = fam["vj"](xg, cb)
+            g = (jx * lb[:, :, None]).sum(1)
+            hx = None
+            if fam["need_hess"] and want_hess is True:
+                hx = fam["hess"](xg, cb, lb).reshape(Bn, napps, nin, nin)
+            elif fam["need_hess"] and want_hess == "zeros":
+                hx = torch.zeros((Bn, napps, nin, nin), dtype=config.DTYPE,
+                                 device=dev)
+            return (fx.reshape(Bn, -1), g.reshape(Bn, napps, nin),
+                    jx.reshape(Bn, napps, fam["nout"], nin), hx)
 
         for fam, cc in zip(self._eq, econ):
-            fx, g, jx, hx = one(fam, cc, lamE[fam["rows_t"]])
+            fx, g, jx, hx = one(fam, cc, lamE[:, fam["rows_t"]])
             famvals["jx_eq"].append(jx)
             famvals["hx_eq"].append(hx)
-            ce.append(fx.reshape(-1))
+            ce.append(fx)
             g2d.append(g)
         for fam, cc in zip(self._iq, icon):
-            fx, g, jx, hx = one(fam, cc, lamI[fam["rows_t"]])
+            fx, g, jx, hx = one(fam, cc, lamI[:, fam["rows_t"]])
             famvals["jx_iq"].append(jx)
             famvals["hx_iq"].append(hx)
-            ci.append(fx.reshape(-1))
+            ci.append(fx)
             g2d.append(g)
         for fam, cc in zip(self._obj, ocon):
-            ones = torch.ones((fam["napps"], 1), dtype=config.DTYPE,
-                              device=self.device)
+            ones = torch.ones((Bn, fam["napps"], 1), dtype=config.DTYPE,
+                              device=dev)
             fx, g, jx, hx = one(fam, cc, ones)
-            obj = obj + torch.sum(fx)
-            famvals["hx_obj"].append(None if hx is None else sigma * hx)
+            obj = obj + fx.sum(-1)
+            famvals["hx_obj"].append(sigma * hx if want_hess is True
+                                     and hx is not None else hx)
             g2d.append(sigma * g)
-        empty = torch.zeros((0,), dtype=config.DTYPE, device=self.device)
-        cE = torch.cat(ce) if ce else empty
-        cI = torch.cat(ci) if ci else empty
-        rd = _apply_grad_plan(self._trd, self._rd_border, g2d)
+        empty = torch.zeros((Bn, 0), dtype=config.DTYPE, device=dev)
+        cE = torch.cat(ce, 1) if ce else empty
+        cI = torch.cat(ci, 1) if ci else empty
+        rd = _apply_grad_plan(self._trd, self._rd_border, g2d, Bn)
         return obj, cE, cI, rd, famvals
 
-    def eval_resid(self, x, lamE, lamI, sigma):
-        obj, cE, cI, rd, _ = self._eval_core(x, lamE, lamI, sigma,
-                                             self.nlp.consts_dev(),
+    def _resid_impl(self, x, lamE, lamI, sigma, consts):
+        obj, cE, cI, rd, _ = self._eval_core(x, lamE, lamI, sigma, consts,
                                              want_hess=False)
         return obj, rd, cE, cI, rd   # 2nd slot (gradf) kept for API shape
+
+    def eval_resid(self, x, lamE, lamI, sigma):
+        """One problem's (obj, rd, cE, cI, rd) (no lane axis)."""
+        out = self._resid_impl(x[None], lamE[None], lamI[None], sigma,
+                               self.nlp.consts_dev())
+        return tuple(o[0] for o in out)
 
     # ------------------------------------------------------ block assembly
     def _blocks_impl(self, famvals, sig_tilde):
         """Gather-table assembly of (diag, lower, B, C) from the family
-        value buffer; the iq condensation J^T Sigma~ J is folded in here so
-        the perturbation ladder could refactor without re-running AD."""
+        value buffer, for every lane (sig_tilde (B, mI)); the iq
+        condensation J^T Sigma~ J is folded in here so the perturbation
+        ladder refactors without re-running AD."""
         bs = self.bs
         K, W, b = bs.K, bs.W, bs.b
+        Bn = sig_tilde.shape[0]
         dev = self.device
         vparts = []
         for i, fam in enumerate(self._eq):
-            vparts.append(famvals["jx_eq"][i].reshape(-1))
+            vparts.append(famvals["jx_eq"][i].reshape(Bn, -1))
             if fam["need_hess"]:
-                vparts.append(famvals["hx_eq"][i].reshape(-1))
+                vparts.append(famvals["hx_eq"][i].reshape(Bn, -1))
         for i, fam in enumerate(self._iq):
             jx = famvals["jx_iq"][i]
-            jst = jx * sig_tilde[fam["rows_t"]][:, :, None]
-            h = jst.transpose(1, 2) @ jx
+            jst = jx * sig_tilde[:, fam["rows_t"]][..., None]
+            h = jst.transpose(-1, -2) @ jx
             if fam["need_hess"]:
                 h = h + famvals["hx_iq"][i]
-            vparts.append(h.reshape(-1))
+            vparts.append(h.reshape(Bn, -1))
         for i, fam in enumerate(self._obj):
             if fam["need_hess"]:
-                vparts.append(famvals["hx_obj"][i].reshape(-1))
-        vbuf = torch.cat(vparts + [torch.zeros(1, dtype=config.DTYPE,
-                                               device=dev)])
+                vparts.append(famvals["hx_obj"][i].reshape(Bn, -1))
+        vbuf = torch.cat(vparts + [torch.zeros((Bn, 1), dtype=config.DTYPE,
+                                               device=dev)], 1)
 
         def compact(tab, size):
             rows, table = tab
-            out = torch.zeros(size, dtype=config.DTYPE, device=dev)
-            out[rows] = vbuf[table].sum(-1)
+            out = torch.zeros((Bn, size), dtype=config.DTYPE, device=dev)
+            out[:, rows] = vbuf[:, table].sum(-1)
             return out
 
-        diag = compact(self._tD, K * W * W).reshape(K, W, W)
-        lower = compact(self._tL, K * W * W).reshape(K, W, W)
-        B = vbuf[self._tB].sum(-1).reshape(K, W, b)
-        C = vbuf[self._tC].sum(-1).reshape(b, b)
+        diag = compact(self._tD, K * W * W).reshape(Bn, K, W, W)
+        lower = compact(self._tL, K * W * W).reshape(Bn, K, W, W)
+        B = vbuf[:, self._tB].sum(-1).reshape(Bn, K, W, b)
+        C = vbuf[:, self._tC].sum(-1).reshape(Bn, b, b)
         return diag, lower, B, C
 
     # -------------------------------------------------------------- factor
     def _factor_blocks_impl(self, blocks, delta, gammaE):
-        """Regularize + factor pre-assembled blocks."""
+        """Regularize + factor pre-assembled blocks (B, ...).  delta: a
+        number, or one per lane (B,).  Returns the factor and the
+        negative-eigenvalue count of each lane (B,)."""
         diag, lower, B, C = blocks
-        diag = diag + (self._d_pos * delta - self._d_neg * gammaE) \
+        if torch.is_tensor(delta) and delta.dim() == 1:
+            dd, dc = delta[:, None, None, None], delta[:, None, None]
+        else:
+            dd = dc = delta
+        diag = diag + (self._d_pos * dd - self._d_neg * gammaE) \
             + self._d_fix
-        C = C + (self._c_pos * delta - self._c_neg * gammaE)
+        C = C + (self._c_pos * dc - self._c_neg * gammaE)
         return bcr_factor(diag, lower, B, C)
 
-    def factor(self, x, lamE, lamI, sigma, sig_tilde, delta, gammaE):
-        _, _, _, _, famvals = self._eval_core(
-            x, lamE, lamI, sigma, self.nlp.consts_dev(), want_hess=True)
+    def _factor_impl(self, x, lamE, lamI, sigma, sig_tilde, delta, gammaE,
+                     consts):
+        """AD + assembly + factor of every lane (x (B, n)); the factor
+        keeps the inequality Jacobians for the matvecs."""
+        _, _, _, _, famvals = self._eval_core(x, lamE, lamI, sigma, consts,
+                                              want_hess=True)
         blocks = self._blocks_impl(famvals, sig_tilde)
-        fac, neigs = self._factor_blocks_impl(blocks, float(delta),
-                                              float(gammaE))
+        fac, neigs = self._factor_blocks_impl(blocks, delta, gammaE)
         fac["iq_jx"] = famvals["jx_iq"]
-        return fac, int(neigs)
+        return fac, neigs
+
+    def factor(self, x, lamE, lamI, sigma, sig_tilde, delta, gammaE):
+        """One problem: AD + assembly + factor; returns (fac, int neigs)."""
+        fac, neigs = self._factor_impl(
+            x[None], lamE[None], lamI[None], sigma, sig_tilde[None],
+            float(delta), float(gammaE), self.nlp.consts_dev())
+        return fac, int(neigs[0])
 
     # --------------------------------------------------------------- solve
-    def solve(self, fac, rhs_x, rhs_E):
+    def _solve_impl(self, fac, rhs_x, rhs_E):
+        """Solve every lane: rhs_x (B, n), rhs_E (B, mE) -> (dx, dlamE)."""
         bs = self.bs
         K, W, b = bs.K, bs.W, bs.b
-        full = torch.zeros((K * W + b,), dtype=config.DTYPE,
+        Bn = rhs_x.shape[0]
+        full = torch.zeros((Bn, K * W + b), dtype=config.DTYPE,
                            device=self.device)
-        full[self._perm] = torch.cat([rhs_x, rhs_E])
-        y, z = bcr_solve(fac, full[:K * W].reshape(K, W), full[K * W:])
-        sol = torch.cat([y.reshape(-1), z])[self._perm]
-        return sol[:bs.n], sol[bs.n:]
+        full[:, self._perm] = torch.cat([rhs_x, rhs_E], 1)
+        y, z = bcr_solve(fac, full[:, :K * W].reshape(Bn, K, W),
+                         full[:, K * W:])
+        sol = torch.cat([y.reshape(Bn, -1), z], 1)[:, self._perm]
+        return sol[:, :bs.n], sol[:, bs.n:]
+
+    def solve(self, fac, rhs_x, rhs_E):
+        """One problem's solve (rhs without the lane axis)."""
+        dx, dlamE = self._solve_impl(fac, rhs_x[None], rhs_E[None])
+        return dx[0], dlamE[0]
 
     # -------------------------------------------------------------- matvec
-    def iq_matvec(self, fac, dx):
-        """J_I dx.  Inequality rows are contiguous per family, so the
-        per-family products concatenate."""
-        parts = [_mv(jx, dx[fam["Vidx_t"]]).reshape(-1)
+    def _iq_matvec_impl(self, fac, dx):
+        """J_I dx for every lane (dx (B, n)).  Inequality rows are
+        contiguous per family, so the per-family products concatenate."""
+        Bn = dx.shape[0]
+        parts = [_mv(jx, dx[:, fam["Vidx_t"]]).reshape(Bn, -1)
                  for fam, jx in zip(self._iq, fac["iq_jx"])]
         if not parts:
-            return torch.zeros((0,), dtype=config.DTYPE, device=self.device)
-        return torch.cat(parts)
+            return torch.zeros((Bn, 0), dtype=config.DTYPE,
+                               device=self.device)
+        return torch.cat(parts, 1)
+
+    def _iq_rmatvec_impl(self, fac, v):
+        """J_I^T v for every lane (v (B, mI)) through the inequality
+        gather plan."""
+        Bn = v.shape[0]
+        if not self._iq:
+            return torch.zeros((Bn, self.nlp.numPrimal), dtype=config.DTYPE,
+                               device=self.device)
+        parts = [(jx * v[:, fam["rows_t"]][..., None]).sum(2)
+                 for fam, jx in zip(self._iq, fac["iq_jx"])]
+        return _apply_grad_plan(self._tiq, self._iq_border, parts, Bn)
+
+    def iq_matvec(self, fac, dx):
+        return self._iq_matvec_impl(fac, dx[None])[0]
 
     def iq_rmatvec(self, fac, v):
-        """J_I^T v through the inequality gather plan."""
-        if not self._iq:
-            return torch.zeros((self.nlp.numPrimal,), dtype=config.DTYPE,
-                               device=self.device)
-        parts = [(jx * v[fam["rows_t"]][:, :, None]).sum(1)
-                 for fam, jx in zip(self._iq, fac["iq_jx"])]
-        return _apply_grad_plan(self._tiq, self._iq_border, parts)
+        return self._iq_rmatvec_impl(fac, v[None])[0]

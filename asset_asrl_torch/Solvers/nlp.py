@@ -194,24 +194,34 @@ class NonLinearProgram:
         self._dense = None          # eval_kkt's plan, built at first use
 
     # ------------------------------------------------------- value pass
-    def eval_obj_cons(self, x):
-        """Objective value + raw constraint residuals (used by the merit
-        line search).  Rows are contiguous per family in family order, so
-        cE/cI are plain concatenations."""
-        ocon, econ, icon = self.consts_dev()
+    def eval_obj_cons_impl(self, x, consts):
+        """Objective value + raw constraint residuals of every lane (the
+        line search's value pass): x (B, n) -> obj (B,), cE (B, mE), cI
+        (B, mI).  Each family runs once over the (B*napps) rows of every
+        lane's applications, the consts shared by every lane.  Rows are
+        contiguous per family in family order, so cE/cI are plain
+        concatenations."""
+        ocon, econ, icon = consts
+        Bn, dev = x.shape[0], self.device
         nobj, neq = len(self.objectives), len(self.eqcons)
-        vals = [fval(x[vidx], cc).reshape(-1)
+        vals = [fval(x[:, vidx].reshape(-1, vidx.shape[1]),
+                     cc.repeat(Bn, 1)).reshape(Bn, -1)
                 for (fval, vidx), cc in zip(self._val, ocon + econ + icon)]
-        obj = torch.zeros((), dtype=config.DTYPE, device=self.device)
+        obj = torch.zeros((Bn,), dtype=config.DTYPE, device=dev)
         for v in vals[:nobj]:
-            obj = obj + torch.sum(v)
+            obj = obj + v.sum(-1)
 
         def cat(parts, m):
-            return torch.cat(parts) if parts else \
-                torch.zeros((m,), dtype=config.DTYPE, device=self.device)
+            return torch.cat(parts, 1) if parts else \
+                torch.zeros((Bn, m), dtype=config.DTYPE, device=dev)
         cE = cat(vals[nobj:nobj + neq], self.numEq)
         cI = cat(vals[nobj + neq:], self.numIq)
         return obj, cE, cI
+
+    def eval_obj_cons(self, x):
+        """`eval_obj_cons_impl` of one problem (x (n,))."""
+        obj, cE, cI = self.eval_obj_cons_impl(x[None], self.consts_dev())
+        return obj[0], cE[0], cI[0]
 
     # ------------------------------------------------------- dense KKT pass
     def _dense_plan(self):

@@ -1,18 +1,23 @@
-"""PSIOPT: primal-dual interior-point NLP solver, host-driven loop.
+"""PSIOPT: primal-dual interior-point NLP solver.
 
-Port of `asset_asrl_tpu/Solvers/psiopt.py` (`_alg_impl`, the host loop):
-slacks per inequality, LOQO / PROBE barrier updates, fraction-to-boundary,
-merit line search, slack reset, the inertia-corrected factorization ladder
-(deltaH/incrH/decrH) and the convergence tiers (CONVERGED / ACCEPTABLE /
-NOTCONVERGED / DIVERGING).
+Port of `asset_asrl_tpu/Solvers/psiopt.py`: slacks per inequality, LOQO /
+PROBE barrier updates, fraction-to-boundary, merit line search, slack
+reset, the inertia-corrected factorization ladder (deltaH/incrH/decrH) and
+the convergence tiers (CONVERGED / ACCEPTABLE / NOTCONVERGED / DIVERGING).
 
 The KKT system is reduced by analytic slack elimination to the symmetric
 quasi-definite form [[H+dI, JE^T, JI^T], [JE, -gI, 0], [JI, 0, -(1/Sig+g)]]
 and factored by the block-tridiagonal backend (`kkt_block.BlockKKT`), or by
 the dense backend (`kkt_dense.DenseKKT`) when the problem's structure does
-not fit the block one.  The per-iteration math runs on the problem's device; the loop, the ladder and
-the line search decisions run on the host, reading a few scalars per
-iteration.
+not fit the block one.
+
+Two loops, as in the JAX package: with `UseFused` (the default) a block
+KKT runs the fused algorithm of `fused.py` (the equality multipliers start
+from the least-squares estimate when `InitLmults`; the family AD runs once
+an iteration and the ladder refactors assembled blocks).  The dense
+backend, and `UseFused = False`, run the host loop `_alg_impl`, which
+re-runs the AD at every ladder refactor and reads a few scalars per
+iteration (the debugging path).
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ import numpy as np
 import torch
 
 from .. import config
+from .fused import INFO_FIELDS, _maxstep, _sigma_diag, _slack_reset, \
+    build_fused_alg, init_multipliers
+from .kkt_block import BlockKKT
 from .nlp import NonLinearProgram
 
 __all__ = ["PSIOPT", "ConvergenceFlags"]
@@ -39,30 +47,9 @@ class ConvergenceFlags:
               3: "DIVERGING"}
 
 
-def _slack_reset(s, cI, negreset):
-    """When the raw inequality value is feasible (<0), zero its residual
-    and snap the slack to |c|; otherwise residual = c + s."""
-    s = torch.clamp(s, min=negreset)
-    feas = cI < 0.0
-    rI = torch.where(feas, torch.zeros_like(cI), cI + s)
-    s = torch.where(feas, torch.clamp(cI.abs(), min=negreset), s)
-    return s, rI
-
-
-def _sigma_diag(s, lamI, mu):
-    """Primal-dual barrier diagonal lam/s with primal fallback mu/s^2."""
-    hp = lamI / s
-    return torch.where(hp < 0.0, mu / (s * s), hp)
-
-
 def _max_step_to_boundary(v, dv, bfrac):
-    """max alpha with v + alpha*dv >= (1-bfrac)*v."""
-    bad = dv < -bfrac * v
-    cand = torch.where(bad, -bfrac * v / torch.where(bad, dv, -1.0),
-                       torch.ones_like(v))
-    if cand.numel() == 0:
-        return 1.0
-    return min(1.0, float(cand.min()))
+    """max alpha <= 1 with v + alpha*dv >= (1-bfrac)*v, on the host."""
+    return float(_maxstep(v, dv, bfrac))
 
 
 def _np(t):
@@ -112,10 +99,37 @@ class PSIOPT:
         self.PDStepStrategy = "PrimSlackEq_Iq"
         # Mehrotra second-order correction in PROBE barrier mode
         self.ProbeCorrector = True
+        # start each pass's equality multipliers from the least-squares
+        # estimate (`init`), on the fused loop
+        self.InitLmults = True
         self.PrintLevel = 0
         self.FastFactorAlg = True
         self.gammaE = 1.0e-10   # dual regularization (quasi-definiteness)
         self.gammaI = 1.0e-10
+        self.CNRMode = False          # no ANSI colors in the iterate table
+        self.WideConsole = False      # iterate table with nfacs and Hpert
+        # keep the KKT blocks (diag, lower, B, C) of the final iterate of
+        # each pass in LastKKTBlocks
+        self.storespmat = False
+        self.LastKKTBlocks = None
+        # on the fused loop, return the best iterate (BestCriteria: ECons,
+        # KKT or ObjVal) of a pass that ended neither CONVERGED nor
+        # ACCEPTABLE
+        self.ReturnBest = False
+        self.BestCriteria = "ECons"
+        # callbacks, called with a dict: EarlyCallBack after every host-loop
+        # iteration, LateCallBack once per fused pass with its `infos`
+        # history (a per-iteration callback would read the device each
+        # iteration)
+        self.EarlyCallBack = None
+        self.LateCallBack = None
+        # the fused loop for block KKTs; False: the host loop
+        self.UseFused = True
+        # time the stage pieces at each fused pass's final iterate and
+        # split the pass's time into LastFuncTime / LastKKTTime by them
+        # (LastStageTimes, seconds); None: on for the CPU, off on CUDA
+        self.MeasureStageTimes = None
+        self.LastStageTimes = None
         # start from the previous solve's multipliers and slacks
         self.WarmStart = False
 
@@ -125,6 +139,9 @@ class PSIOPT:
         self.LastTotalTime = 0.0
         self.LastFuncTime = 0.0
         self.LastKKTTime = 0.0
+        # the last fused pass: outer iterations, host reads and
+        # factorizations (`fused.build_fused_alg` stats)
+        self.LastFusedStats = None
         self.ConvergeFlag = ConvergenceFlags.NOTCONVERGED
         self.LastEqLmults = None
         self.LastIqLmults = None
@@ -203,6 +220,12 @@ class PSIOPT:
     def set_deltaH(self, v):
         self.deltaH = abs(v)
 
+    def set_QPOrderingMode(self, *_):
+        pass  # no sparse ordering in the block or dense backends
+
+    def set_QPParams(self, *_, **__):
+        pass
+
     def setNLP(self, nlp, kkt=None):
         self.nlp = nlp
         self.kkt = kkt
@@ -227,6 +250,40 @@ class PSIOPT:
         return x, s, lamE, lamI
 
     # ------------------------------------------------------------ public API
+    def init(self, x):
+        """The INIT pass: slacks and inequality multipliers from the
+        constraint values, and the least-squares estimate of the equality
+        multipliers from one first-order factorization (unit primal
+        diagonal, zero Hessian), stored for a WarmStart of the next solve.
+        Returns (x, s, lamE, lamI) as numpy arrays."""
+        self.nlp.freeze()
+        if self.kkt is None:
+            from .kkt_dense import DenseKKT
+            self.kkt = DenseKKT(self.nlp)
+        x, s, lamE, lamI = self._init_state(np.asarray(x, np.float64),
+                                            self.initMu)
+        nlp, kkt, dev = self.nlp, self.kkt, self.nlp.device
+        mE, mI = nlp.numEq, nlp.numIq
+        if mE > 0 and isinstance(kkt, BlockKKT):
+            lamE0 = init_multipliers(kkt, x[None], self.ObjScale,
+                                     self.gammaE, nlp.consts_dev())[0]
+            if bool(torch.isfinite(lamE0).all()):
+                lamE = lamE0
+        elif mE > 0:
+            # dense: factor at unit perturbation, first-order rhs
+            zE = torch.zeros((mE,), dtype=config.DTYPE, device=dev)
+            zI = torch.zeros((mI,), dtype=config.DTYPE, device=dev)
+            _, _, _, _, rd = kkt.eval_resid(x, zE, zI, self.ObjScale)
+            fac, _ = kkt.factor(x, zE, zI, self.ObjScale,
+                                torch.ones_like(zI), 1.0, self.gammaE)
+            _, lamE0 = kkt.solve(fac, -rd, zE)
+            if bool(torch.isfinite(lamE0).all()):
+                lamE = lamE0
+        self.LastEqLmults = _np(lamE)
+        self.LastIqLmults = _np(lamI)
+        self.LastSlacks = _np(s)
+        return _np(x), _np(s), _np(lamE), _np(lamI)
+
     def solve(self, x):
         """Feasibility pass (SoeMode)."""
         return self._run(x, ["SOE"])
@@ -260,10 +317,12 @@ class PSIOPT:
         x, s, lamE, lamI = self._init_state(np.asarray(x0, np.float64),
                                             self.initMu)
         nlp, dev = self.nlp, self.nlp.device
+        self._warm_applied = False
         if self.WarmStart and self.LastEqLmults is not None \
                 and len(self.LastEqLmults) == nlp.numEq \
                 and self.LastIqLmults is not None \
                 and len(self.LastIqLmults) == nlp.numIq:
+            self._warm_applied = True
             lamE = config.tensor(self.LastEqLmults, dev)
             if nlp.numIq:
                 lamI = torch.clamp(config.tensor(self.LastIqLmults, dev),
@@ -272,11 +331,13 @@ class PSIOPT:
                         and len(self.LastSlacks) == nlp.numIq:
                     s = torch.clamp(config.tensor(self.LastSlacks, dev),
                                     min=self.BoundPush * 1e-3)
+        alg = self._alg_fused if self.UseFused \
+            and isinstance(self.kkt, BlockKKT) else self._alg_impl
         flag = ConvergenceFlags.NOTCONVERGED
         for mode in schedule:
             if mode == "SOE":
                 mode = str(self.SoeMode)
-            x, s, lamE, lamI, flag = self._alg_impl(mode, x, s, lamE, lamI)
+            x, s, lamE, lamI, flag = alg(mode, x, s, lamE, lamI)
             if flag == ConvergenceFlags.DIVERGING:
                 break
         self.ConvergeFlag = flag
@@ -287,6 +348,154 @@ class PSIOPT:
         self.LastObjVal = float(obj)
         self.LastTotalTime = time.perf_counter() - t0
         return _np(x)
+
+    # ------------------------------------------------------ fused device loop
+    def _opts_snapshot(self):
+        keys = ("MaxIters", "MaxAccIters", "MaxLSIters", "MaxRefac",
+                "KKTtol", "EContol", "IContol", "Bartol",
+                "AccKKTtol", "AccEContol", "AccIContol", "AccBartol",
+                "DivKKTtol", "DivEContol", "DivIContol", "DivBartol",
+                "BoundFraction", "NegSlackReset", "deltaH", "incrH",
+                "decrH", "initMu", "MaxMu", "MinMu", "ObjScale",
+                "alphaRed", "OptBarMode", "SoeBarMode", "OptLSMode",
+                "SoeLSMode", "FastFactorAlg", "gammaE", "gammaI",
+                "BestCriteria", "PDStepStrategy", "InitLmults",
+                "ProbeCorrector")
+        return {k: getattr(self, k) for k in keys}
+
+    def _alg_fused(self, mode, x, s, lamE, lamI):
+        """One mode pass through the fused loop."""
+        opts = self._opts_snapshot()
+        # a warm start keeps the multipliers it was given
+        opts["InitLmults"] = bool(self.InitLmults) \
+            and not getattr(self, "_warm_applied", False)
+        key = (mode, tuple(sorted(opts.items())), id(self.kkt))
+        cache = getattr(self, "_fused_cache", None)
+        if cache is None or cache[0] != key:
+            self._fused_cache = (key, build_fused_alg(self.kkt, opts, mode))
+        fn = self._fused_cache[1]
+        sigma = 0.0 if mode in ("SOE", "OPTNO") else self.ObjScale
+        tq0 = time.perf_counter()
+        out = fn(x[None], s[None], lamE[None], lamI[None], self.initMu,
+                 self.nlp.consts_dev())
+        (x, s, lamE, lamI, Mu, flag, niters, infos,
+         bx, bs_, blE, blI) = (o[0] for o in out)
+        flag, niters = int(flag), int(niters)
+        elapsed = time.perf_counter() - tq0
+        self.LastFusedStats = dict(fn.stats)
+        mst = self.MeasureStageTimes
+        if mst is None:
+            mst = self.nlp.device.type == "cpu"
+        st = self.measure_stage_times(x, s, lamE, lamI, float(Mu), sigma) \
+            if mst else None
+        if st:
+            func = st["func_ad"] + st["value_pass"]
+            kkt_t = st["assembly"] + st["factor"] + st["solve"]
+            tot = max(func + kkt_t, 1e-12)
+            self.LastFuncTime += elapsed * func / tot
+            self.LastKKTTime += elapsed * kkt_t / tot
+        else:
+            self.LastKKTTime += elapsed
+        infos = _np(infos[:max(niters, 1)])
+        if self.ReturnBest and flag not in (ConvergenceFlags.CONVERGED,
+                                            ConvergenceFlags.ACCEPTABLE):
+            x, s, lamE, lamI = bx, bs_, blE, blI
+        self.LastIterNum += niters
+        if self.storespmat:
+            self._store_spmat(x, s, lamE, lamI, float(Mu), sigma)
+        if callable(self.LateCallBack):
+            self.LateCallBack(dict(mode=mode, flag=flag, iters=niters,
+                                   infos=infos, x=_np(x), lamE=_np(lamE),
+                                   lamI=_np(lamI)))
+        if self.PrintLevel == 0:
+            self._print_iterate_table(mode, infos)
+        if self.PrintLevel <= 1:
+            r = infos[-1]
+            print(f"PSIOPT [{mode}] {ConvergenceFlags._names[flag]} in "
+                  f"{len(infos)} iters: obj {r[0]:+.8e} kkt {r[1]:.2e} "
+                  f"econ {r[2]:.2e} icon {r[3]:.2e} barr {r[4]:.2e}")
+        return x, s, lamE, lamI, flag
+
+    def _sig_tilde(self, s, lamI, Mu):
+        if self.nlp.numIq == 0:
+            return torch.zeros((0,), dtype=config.DTYPE, device=s.device)
+        s_ = torch.clamp(s, min=1e-300)
+        Sig = _sigma_diag(s_, lamI, Mu)
+        return Sig / (1.0 + self.gammaI * Sig)
+
+    def measure_stage_times(self, x, s, lamE, lamI, Mu, sigma):
+        """Seconds of each stage of one fused iteration at the given
+        iterate (family AD with Hessians, block assembly, regularize +
+        factor, solve, line-search value pass): a warm call, then the mean
+        of 3, each ending in a device synchronize.  Returns the dict (also
+        stored in LastStageTimes); None for a dense KKT."""
+        if not isinstance(self.kkt, BlockKKT):
+            return None
+        kkt, nlp = self.kkt, self.nlp
+        consts = nlp.consts_dev()
+        xb, sb, lEb, lIb = x[None], s[None], lamE[None], lamI[None]
+        sig_tilde = self._sig_tilde(s, lamI, Mu)[None]
+        cuda = x.device.type == "cuda"
+
+        def timed(fn, *a, reps=3):
+            out = fn(*a)            # warm
+            if cuda:
+                torch.cuda.synchronize(x.device)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = fn(*a)
+            if cuda:
+                torch.cuda.synchronize(x.device)
+            return (time.perf_counter() - t0) / reps, out
+
+        t_ad, adout = timed(kkt._eval_core, xb, lEb, lIb, float(sigma),
+                            consts, True)
+        t_blk, blocks = timed(kkt._blocks_impl, adout[4], sig_tilde)
+        t_fac, facout = timed(kkt._factor_blocks_impl, blocks,
+                              float(self.deltaH), float(self.gammaE))
+        t_slv, _ = timed(kkt._solve_impl, facout[0], torch.zeros_like(xb),
+                         torch.zeros_like(lEb))
+        t_oc, _ = timed(nlp.eval_obj_cons_impl, xb, consts)
+        self.LastStageTimes = dict(func_ad=t_ad, assembly=t_blk,
+                                   factor=t_fac, solve=t_slv,
+                                   value_pass=t_oc)
+        return self.LastStageTimes
+
+    def _store_spmat(self, x, s, lamE, lamI, Mu, sigma):
+        """The KKT blocks (diag, lower, B, C) at the given iterate, as
+        numpy arrays in LastKKTBlocks (block KKT only)."""
+        if not isinstance(self.kkt, BlockKKT):
+            return
+        _, _, _, _, famvals = self.kkt._eval_core(
+            x[None], lamE[None], lamI[None], float(sigma),
+            self.nlp.consts_dev(), True)
+        blocks = self.kkt._blocks_impl(famvals,
+                                       self._sig_tilde(s, lamI, Mu)[None])
+        self.LastKKTBlocks = tuple(_np(b[0]) for b in blocks)
+
+    # --------------------------------------------------------- console table
+    def _print_iterate_table(self, mode, infos):
+        """Fixed-width iterate table of a fused pass; colors unless
+        CNRMode; WideConsole adds the factorization columns."""
+        GRN, CYN, END = ("\033[92m", "\033[96m", "\033[0m") \
+            if not self.CNRMode else ("",) * 3
+        cols = ["iter", "objective", "KKT-inf", "ECons-inf", "ICons-inf",
+                "barrier", "mu", "alpha"]
+        if self.WideConsole:
+            cols += ["nfacs", "Hpert"]
+        w = [5, 15, 10, 10, 10, 10, 9, 7, 6, 9]
+        head = " ".join(f"{c:>{w[i]}}" for i, c in enumerate(cols))
+        print(f"{CYN}[{mode}] {head}{END}")
+        for i, r in enumerate(infos):
+            vals = [r[INFO_FIELDS.index(f)] for f in INFO_FIELDS]
+            C = GRN if vals[2] < self.EContol and vals[1] < self.KKTtol \
+                else ""
+            line = (f"{i:>5d} {vals[0]:>+15.8e} {vals[1]:>10.2e} "
+                    f"{vals[2]:>10.2e} {vals[3]:>10.2e} {vals[4]:>10.2e} "
+                    f"{vals[5]:>9.1e} {vals[6]:>7.3f}")
+            if self.WideConsole:
+                line += f" {int(vals[7]):>6d} {vals[8]:>9.1e}"
+            print(f"{C}{line}{END if C else ''}")
 
     # ------------------------------------------------------------- main loop
     def _alg_impl(self, mode, x, s, lamE, lamI):
@@ -460,6 +669,10 @@ class PSIOPT:
                               econ=econinf, icon=iconinf, barr=maxcomp,
                               mu=Mu, alpha=alpha, nfacs=nfacs,
                               hpert=nhpert))
+            if callable(self.EarlyCallBack):
+                self.EarlyCallBack(dict(
+                    mode=mode, x=_np(x), dx=_np(dx), lamE=_np(lamE),
+                    lamI=_np(lamI), info=infos[-1]))
             if self.PrintLevel == 0:
                 print(f"  [{mode}] it {it:3d} obj {float(obj):+.6e} "
                       f"kkt {kktinf:8.2e} econ {econinf:8.2e} "
@@ -488,6 +701,8 @@ class PSIOPT:
                   f"{len(infos)} iters: obj {i0['obj']:+.8e} "
                   f"kkt {i0['kkt']:.2e} econ {i0['econ']:.2e} "
                   f"icon {i0['icon']:.2e} barr {i0['barr']:.2e}")
+        if self.storespmat:
+            self._store_spmat(x, s, lamE, lamI, Mu, sigma)
         return x, s, lamE, lamI, flag
 
     # ------------------------------------------------------------ line search

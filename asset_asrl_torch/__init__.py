@@ -16,5 +16,6 @@ from . import Solvers
 from . import OptimalControl
 from . import Integrators
 from . import Astro
+from . import parallel  # noqa: F401
 
 __version__ = "0.2.0"

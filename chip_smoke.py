@@ -50,14 +50,29 @@ Phases, each of which ends the run with a non-zero exit on failure:
 14. the three mesh-error estimators on the solved Delta III of phase 10
    (10,004 nodes; "integrator" is one batched propagation of 2500
    segments a phase), and an auto-scaled CartPole at 10,001 nodes with
-   unit 1 on every variable against the unscaled solve of phase 6.
+   unit 1 on every variable against the unscaled solve of phase 6;
+15. the default solve (the fused PSIOPT loop with the least-squares
+   multiplier start) on the Brachistochrone, the CartPole at 40 and 5000
+   segments and formation flying at 256 segments a phase (two linked
+   phases, the wide K1 kernel under the fused loop), against the JAX
+   package's default solve; `PSIOPT.init`
+   and ReturnBest against the JAX package; time-to-solution, host reads
+   and factorizations per iteration, peak memory and the stage times;
+16. scenario ensembles through `parallel.solve_ensemble`: the
+   MultiSpacecraft rendezvous leg of `examples/MultiSpacecraftOptimization.py`
+   at 512 scenarios and the CartPole at 10,001 nodes at 16 scenarios,
+   each K1 launch covering every lane of a reduction level; lane 0 and the
+   lane with the most iterations solved alone must equal their lanes.
 
-Every phase resets the K1 launch counts just before it drives its problem
-and reads them just after.  The line before the last two is a JSON object
-describing every kernel of the main path (narrow K1 launches from phase
-10, wide K1 launches from the 256-segment run of phase 8, and under
-`launches_elsewhere` those of the solves of phases 12 to 14); then the
-card's name and power limit; the last line is the JSON device record.
+Phases 5 to 14 hold the port to the JAX package's host loop, so their
+problems run the port's host loop too (`UseFused = False`); phases 15 and
+16 run the default, fused, loop.  Every phase resets the K1 launch counts
+just before it drives its problem and reads them just after.  The line
+before the last two is a JSON object describing every kernel of the main
+path (narrow K1 launches from phase 10, wide K1 launches from the
+256-segment run of phase 8, and under `launches_elsewhere` those of the
+solves of phases 12 to 16); then the card's name and power limit; the
+last line is the JSON device record.
 """
 
 import contextlib
@@ -103,6 +118,30 @@ DELTA3_PUBLISHED = 7529.749892668763
 # the hypersensitive problem of `tests/test_adaptivemesh.py`: (flag,
 # segments at each mesh estimate, objective)
 HYPERSENS = (0, [10, 59, 380, 1414], 1.6732960912289117)
+
+# The JAX package's numbers below come from `tools/port_references.py`
+# (`--all` for the 5000-segment CartPole and the 512 scenarios).
+# The JAX package's default solve (the fused loop with the least-squares
+# multiplier start; x64, CPU): (flag, iterations, objective)
+FUSED = {"Brachistochrone LGL3 24": (0, 8, 1.8012955182586587),
+         "CartPole LGL5 40": (0, 10, 58.810317640814674),
+         "CartPole LGL5 5000": (0, 14, 58.80766768903671),
+         "formation 256": (0, 3, 3.000091316839824)}
+# The JAX package's PSIOPT.init on the 40-segment CartPole with a control
+# guess of 1 (with the benchmark's guess of 0 the objective gradient, and
+# with it every least-squares multiplier, is 0): (|lamE|, lamE[:4], the
+# index of the largest |lamE|)
+INIT_40 = (25.02271521012259, [0.8609886057067565, -3.231524962787345,
+                               -1.3036428454937703, 0.09358654298006391], 361)
+# ReturnBest on the 24-segment LGL3 Brachistochrone capped at 4
+# iterations: (flag, iterations, objective of the best iterate)
+RETURN_BEST = (2, 4, 1.7648249876336402)
+# The MultiSpacecraft leg: the baseline default solve (flag, iterations,
+# objective), and the JAX package's solve_ensemble of 512 scenarios about
+# it (every lane: flag 0 in 3 iterations; the objectives of lanes 0-3)
+MSC_BASE = (0, 5, 0.5942206860287187)
+MSC_512 = (0, 3, [0.594220686011265, 0.5942206860088641,
+                  0.5942206860060142, 0.5942206860108289])
 
 
 def cartpole_ode(ast):
@@ -399,6 +438,42 @@ def build_hypersens(ast):
     return phase
 
 
+def build_multispacecraft(ast, nsegs=12):
+    """The low-thrust rendezvous leg of the MultiSpacecraft ensemble
+    (`examples/MultiSpacecraftOptimization.py`, `ensemble_demo`): a
+    two-body phase with a 3-component thrust acceleration, LGL3 on 12
+    segments (10 variables a node), from a circular orbit to a target 4
+    degrees ahead of the half-revolution point, minimizing the integral of
+    the squared thrust; built with either package's namespace."""
+    vf, oc = ast.VectorFunctions, ast.OptimalControl
+    Args = vf.Arguments
+
+    class TwoBody(oc.ODEBase):
+        def __init__(self, ltacc=0.0):
+            args = oc.ODEArguments(6, 3 if ltacc else 0)
+            r, v = args.head3(), args.segment3(3)
+            acc = r.normalized_power3() * (-1.0)
+            if ltacc:
+                acc = acc + args.tail3() * ltacc
+            super().__init__(vf.stack([v, acc]), 6, 3 if ltacc else 0)
+
+    def circ(r, thetadeg):
+        v, th = np.sqrt(1.0 / r), np.deg2rad(thetadeg)
+        return np.array([np.cos(th) * r, np.sin(th) * r, 0.0,
+                         -np.sin(th) * v, np.cos(th) * v, 0.0, 0.0])
+
+    rows = TwoBody().integrator(.01).integrate_dense(circ(1, 0.0), np.pi, 40)
+    IG = [np.concatenate([np.asarray(row)[:7], [0.01, 0, 0]]) for row in rows]
+    target = circ(1.0, np.rad2deg(np.pi) + 4.0)
+    phase = TwoBody(ltacc=0.05).phase("LGL3", IG, nsegs)
+    phase.addBoundaryValue("Front", range(0, 7), np.asarray(IG[0][:7]))
+    phase.addUpperNormBound("Path", [7, 8, 9], 1.0)
+    phase.addBoundaryValue("Back", [6], [np.pi])
+    phase.addEqualCon("Back", Args(6) - target[0:6], range(0, 6))
+    phase.addIntegralObjective(Args(3).squared_norm(), [7, 8, 9])
+    return phase
+
+
 def quasi_definite_blocks(K, W, seed, dtype):
     """Seeded symmetric quasi-definite blocks: a positive definite
     leading half and a negative definite trailing half, as the
@@ -489,9 +564,14 @@ def plain_inertia(ck, D):
 K1_SHAPES = [(2500, 24), (1250, 24), (156, 24), (1, 24), (5002, 25),
              (2501, 25), (1, 1), (1, 2), (514, 8), (25, 11), (13, 27), (3, 32), (3, 33),
              (65, 42), (3, 64), (1, 65), (1, 85), (1, 160), (1, 255),
-             (1, 261), (2, 511), (1, 517), (1, 1029)]
+             (1, 261), (2, 511), (1, 517), (1, 1029), (40000, 24),
+             (3072, 22), (512, 3)]
+# the last three: the first reduction level of the 16-lane CartPole
+# ensemble (16 x 2500 blocks), the first level and the border of the
+# 512-lane MultiSpacecraft ensemble (512 x 6 blocks, 512 borders)
 K1_TIMED = [(2500, 24), (156, 24), (1, 24), (5002, 25), (2501, 25),
-            (514, 8), (25, 11), (1, 255), (1, 261), (1, 517), (1, 1029)]
+            (514, 8), (25, 11), (1, 255), (1, 261), (1, 517), (1, 1029),
+            (40000, 24), (3072, 22), (512, 3)]
 # the shape of each kernel's entry in the kernels line, and the run that
 # its launches are read from: the first reduction level of Delta III at
 # 10,004 nodes, the border of formation flying at 256 segments
@@ -627,13 +707,14 @@ def phase_bcr(kb):
         A[K * W:, K * W:] = C
         t = [torch.tensor(a, dtype=torch.float64, device="cuda")
              for a in (diag, lower, B, C, A)]
-        fac, neigs = kb.bcr_factor(*t[:4])
+        fac, neigs = kb.bcr_factor(*(a[None] for a in t[:4]))
+        neigs = neigs[0]
         At = t[4]
         r = torch.tensor(rng.normal(size=(K, W)), dtype=torch.float64,
                          device="cuda")
         rb = torch.tensor(rng.normal(size=(b,)), dtype=torch.float64,
                           device="cuda")
-        y, z = kb.bcr_solve(fac, r, rb)
+        y, z = (a[0] for a in kb.bcr_solve(fac, r[None], rb[None]))
         ref = torch.linalg.solve(At, torch.cat([r.reshape(-1), rb]))
         err = rel(torch.cat([y.reshape(-1), z]), ref)
         nneg = int((torch.linalg.eigvalsh(At) < 0).sum())
@@ -654,6 +735,7 @@ def reset_peak_memory():
 def run_phase(ast, ck, nsegs):
     ph = build_cartpole(ast, nsegs)
     ph.optimizer.set_PrintLevel(1)
+    ph.optimizer.UseFused = False       # held to the JAX host loop
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ph.transcribe()
@@ -753,6 +835,7 @@ def phase_breadth(ast, ck):
                ref) for cm, ref in CARTPOLE_128.items()]
     for prob, mode, ph, (rflag, rit, robj) in cases:
         ph.optimizer.set_PrintLevel(2)
+        ph.optimizer.UseFused = False   # held to the JAX host loop
         flag, n1, _, secs = counted(ck, ph.optimize)
         it, obj = ph.optimizer.LastIterNum, ph.optimizer.LastObjVal
         bs = ph.optimizer.kkt.bs
@@ -775,6 +858,7 @@ def phase_formation(ast, ck, nsegs):
     rflag, rit, robj, rb = FORMATION[nsegs]
     ocp, pa, pb = build_formation(ast, nsegs)
     ocp.optimizer.set_PrintLevel(2)
+    ocp.optimizer.UseFused = False      # held to the JAX host loop
     flag, n1, nw, secs = counted(ck, ocp.optimize)
     it, obj = ocp.optimizer.LastIterNum, ocp.optimizer.LastObjVal
     bs = ocp.optimizer.kkt.bs
@@ -793,6 +877,7 @@ def phase_formation(ast, ck, nsegs):
 def run_delta3(ast, ck, nsegs):
     ocp, phases = build_delta3(ast, nsegs)
     ocp.optimizer.set_PrintLevel(1)
+    ocp.optimizer.UseFused = False      # held to the JAX host loop
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ocp.transcribe()
@@ -976,6 +1061,7 @@ def phase_hypersens(ast, ck):
     rflag, rsegs, robj = HYPERSENS
     ph = build_hypersens(ast)
     ph.optimizer.set_PrintLevel(2)
+    ph.optimizer.UseFused = False       # held to the JAX host loop
     reset_peak_memory()
     with mesh_log() as seen:
         flag, n1, nw, secs = counted(ck, ph.solve_optimize)
@@ -1004,6 +1090,7 @@ def phase_delta3_adaptive(ast, ck):
     rflag, rsegs, rmass = DELTA3_ADAPTIVE
     ocp, phases = build_delta3(ast, 40, adaptive=True)
     ocp.optimizer.set_PrintLevel(2)
+    ocp.optimizer.UseFused = False      # held to the JAX host loop
     reset_peak_memory()
     with mesh_log() as seen:
         flag, n1, nw, secs = counted(ck, ocp.solve_optimize)
@@ -1062,6 +1149,7 @@ def phase_estimators(ast, ck, phases, obj_unscaled):
     ph.setAutoScaling(True)
     ph.setUnits(np.ones(6))
     ph.optimizer.set_PrintLevel(2)
+    ph.optimizer.UseFused = False       # against phase 6's host loop
     flag, n1, nw, secs = counted(ck, ph.optimize)
     obj = ph.optimizer.LastObjVal
     print(f"auto-scaled CartPole ({ph.numNodes} nodes, unit 1): flag {flag} "
@@ -1075,6 +1163,225 @@ def phase_estimators(ast, ck, phases, obj_unscaled):
     return n1, nw
 
 
+def fused_line(opt, secs):
+    """Time-to-solution, rates and host reads of the last fused solve."""
+    it = opt.LastIterNum
+    st = opt.LastFusedStats
+    return (f"{secs:.3f} s, {it / secs:.3f} iterations/s, "
+            f"{st['factorizations'] / it:.3f} factorizations and "
+            f"{st['syncs'] / it:.3f} host reads per iteration")
+
+
+def phase_default_solve(ast, ck):
+    """Phase 15: the default solve, the fused loop, against the JAX
+    package's default solve.  Objectives to 1e-9 relative (1e-8 at
+    10,001 nodes, where both stop at a KKT error of 1e-6), the init
+    multipliers to 1e-9.  Returns the K1 launches (narrow, wide) of the
+    two-phase formation flying and the 10,001-node solves."""
+    for name, ph in (("Brachistochrone LGL3 24",
+                      build_brachistochrone(ast, "LGL3", 24)),
+                     ("CartPole LGL5 40", build_cartpole(ast, 40))):
+        rflag, rit, robj = FUSED[name]
+        opt = ph.optimizer
+        opt.set_PrintLevel(2)
+        check(opt.UseFused and opt.InitLmults, "the default is not fused")
+        flag, n1, _, secs = counted(ck, ph.optimize)
+        obj = opt.LastObjVal
+        print(f"default solve, {name}: flag {flag} iters {opt.LastIterNum} "
+              f"obj {obj:.16f} (JAX default {robj:.16f}), K1 launches {n1}, "
+              f"{fused_line(opt, secs)}")
+        check(flag == rflag and opt.LastIterNum == rit,
+              f"default solve {name}: flag/iterations")
+        check(abs(obj - robj) <= 1e-9 * robj, f"default solve {name}: obj")
+        check(n1 > 0, f"default solve {name}: K1 never launched")
+
+    ocp, pa, pb = build_formation(ast, 256)
+    opt = ocp.optimizer
+    opt.set_PrintLevel(2)
+    check(opt.UseFused and opt.InitLmults, "the OCP default is not fused")
+    flag, n1, nw, secs = counted(ck, ocp.optimize)
+    rflag, rit, robj = FUSED["formation 256"]
+    obj = opt.LastObjVal
+    print(f"default solve, formation flying 256 segs (b {opt.kkt.bs.b}): "
+          f"flag {flag} iters {opt.LastIterNum} obj {obj:.16f} (JAX default "
+          f"{robj:.16f}), K1 launches {n1} narrow / {nw} wide, "
+          f"{fused_line(opt, secs)}")
+    check(flag == rflag and opt.LastIterNum == rit,
+          "default solve, formation flying: flag/iterations")
+    check(abs(obj - robj) <= 1e-9 * robj,
+          "default solve, formation flying: objective")
+    check(nw > 0, "default solve, formation flying: wide K1 never launched")
+    gap = np.asarray(pb.returnTraj())[:, 0] - np.asarray(pa.returnTraj())[:, 0]
+    check(np.abs(gap - 0.2).max() < 1e-6, "formation offset not held")
+    out = {"default (fused) solve, formation flying 256 segments": (n1, nw)}
+
+    ph = build_cartpole(ast, 40, u0=1.0)
+    ph.optimizer.set_PrintLevel(2)
+    ph.transcribe()
+    lamE = ph.optimizer.init(ph.makeSolverInput())[2]
+    rnorm, rfirst, rarg = INIT_40
+    norm = float(np.linalg.norm(lamE))
+    print(f"PSIOPT.init, CartPole 40 segments, control guess 1: |lamE| "
+          f"{norm:.16f} (JAX {rnorm:.16f}), lamE[:4] {lamE[:4].tolist()}, "
+          f"largest at {int(np.abs(lamE).argmax())}")
+    check(abs(norm - rnorm) <= 1e-9 * rnorm
+          and np.abs(lamE[:4] - rfirst).max() <= 1e-9 * rnorm
+          and int(np.abs(lamE).argmax()) == rarg, "PSIOPT.init off")
+
+    ph = build_brachistochrone(ast, "LGL3", 24)
+    opt = ph.optimizer
+    opt.set_PrintLevel(2)
+    opt.MaxIters, opt.ReturnBest = 4, True
+    flag = ph.optimize()
+    rflag, rit, robj = RETURN_BEST
+    print(f"ReturnBest, Brachistochrone capped at 4 iterations: flag {flag} "
+          f"iters {opt.LastIterNum} obj {opt.LastObjVal:.16f} (JAX "
+          f"{robj:.16f})")
+    check(flag == rflag and opt.LastIterNum == rit
+          and abs(opt.LastObjVal - robj) <= 1e-9 * robj, "ReturnBest off")
+
+    reset_peak_memory()
+    ph = build_cartpole(ast, 5000)
+    opt = ph.optimizer
+    opt.set_PrintLevel(1)
+    ph.transcribe()
+    flag, n1, nw, secs = counted(ck, ph.optimize)
+    peak = torch.cuda.max_memory_allocated()
+    obj = opt.LastObjVal
+    rflag, rit, robj = FUSED["CartPole LGL5 5000"]
+    print(f"default solve, CartPole 5000 segs ({ph.numNodes} nodes): flag "
+          f"{flag} iters {opt.LastIterNum} obj {obj:.15f} (JAX default "
+          f"{robj:.15f}), K1 launches {n1}")
+    print(f"  time-to-solution {fused_line(opt, secs)}; peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    dev = ast.config.DEVICE
+    state = [ast.config.tensor(a, dev) for a in (
+        ph.makeSolverInput(), opt.LastSlacks, opt.LastEqLmults,
+        opt.LastIqLmults)]
+    st = opt.measure_stage_times(*state, opt.initMu, opt.ObjScale)
+    print("  stage times at the solution (LastStageTimes, ms): " + ", ".join(
+        f"{k} {1e3 * v:.3f}" for k, v in st.items()))
+    check(flag == rflag and opt.LastIterNum == rit,
+          "default solve at 10,001 nodes: flag/iterations")
+    check(abs(obj - robj) <= 1e-8 * robj,
+          "default solve at 10,001 nodes: objective")
+    check(n1 > 0, "default solve at 10,001 nodes: K1 never launched")
+    out["default (fused) solve, CartPole 10,001 nodes"] = (n1, nw)
+    return out
+
+
+@contextlib.contextmanager
+def k1_log(kb):
+    """Record the (blocks, width) of every K1 launch the block KKT makes
+    inside the block."""
+    shapes = []
+    plain = kb.gj_inverse_inertia
+
+    def spy(D):
+        shapes.append(tuple(D.shape[:2]))
+        return plain(D)
+    kb.gj_inverse_inertia = spy
+    try:
+        yield shapes
+    finally:
+        kb.gj_inverse_inertia = plain
+
+
+def run_ensemble(ast, ck, kb, name, ph, perts, ref=None):
+    """One solve_ensemble on the card; every K1 launch must cover every
+    lane, and lane 0 and the lane with the most iterations, solved alone
+    through optimize(), must equal their lanes (flag and iterations, the
+    objective to 1e-9 relative).  Returns the K1 launches (narrow,
+    wide)."""
+    from asset_asrl_torch.parallel import solve_ensemble
+    B = len(perts)
+    base = ph.makeSolverInput()
+    reset_peak_memory()
+    with k1_log(kb) as shapes:
+        res, n1, nw, secs = counted(ck, lambda: solve_ensemble(
+            ph, perturb_states=perts))
+    peak = torch.cuda.max_memory_allocated()
+    st = ph.optimizer.LastFusedStats
+    iters = res["iters"]
+    print(f"{name} ensemble, {B} scenarios: flags "
+          f"{np.bincount(res['flags'], minlength=4).tolist()}, iterations "
+          f"{iters.min()}..{iters.max()} ({iters.sum()} lane-iterations), "
+          f"{secs:.3f} s: {B / secs:.2f} scenarios/s, "
+          f"{iters.sum() / secs:.2f} lane-iterations/s; {st['iterations']} "
+          f"batched iterations, {st['factorizations']} factorizations, "
+          f"{st['syncs']} host reads; peak device memory "
+          f"{peak / 2**20:.1f} MiB; K1 launches {n1} narrow / {nw} wide")
+    counts = {}
+    for k in shapes:
+        counts[k] = counts.get(k, 0) + 1
+    print("  K1 launch shapes (blocks, width): count " + ", ".join(
+        f"{k}: {v}" for k, v in sorted(counts.items(), reverse=True)))
+    check(np.isfinite(res["x"]).all() and res["x"].shape == (B, base.size),
+          f"{name} ensemble: x")
+    check(n1 + nw == len(shapes) > 0
+          and all(k % B == 0 for k, _ in shapes),
+          f"{name} ensemble: a K1 launch does not cover every lane")
+    if ref is not None:
+        rflag, rit, robjs = ref
+        dev = np.abs(res["objs"][:len(robjs)] - robjs).max()
+        print(f"  against the JAX package's ensemble: objectives of lanes "
+              f"0-{len(robjs) - 1} within {dev:.3e}")
+        check((res["flags"] == rflag).all() and (iters == rit).all(),
+              f"{name} ensemble: flags/iterations differ from JAX")
+        check(dev <= 1e-9 * max(abs(r) for r in robjs),
+              f"{name} ensemble: objectives differ from JAX")
+    opt = ph.optimizer
+    for i in sorted({0, int(np.argmax(iters))}):
+        t0 = time.perf_counter()
+        opt.optimize(base + perts[i])
+        secs = time.perf_counter() - t0
+        robj = float(res["objs"][i])
+        print(f"  lane {i} alone: flag {opt.ConvergeFlag} iters "
+              f"{opt.LastIterNum} obj {opt.LastObjVal:.16f} (in the batch: "
+              f"flag {res['flags'][i]} iters {iters[i]} obj {robj:.16f}), "
+              f"{secs:.3f} s")
+        check(opt.ConvergeFlag == res["flags"][i]
+              and opt.LastIterNum == iters[i],
+              f"{name} ensemble: lane {i} differs from its solo solve")
+        check(abs(opt.LastObjVal - robj) <= 1e-9 * abs(robj),
+              f"{name} ensemble: lane {i} objective")
+    return n1, nw
+
+
+def phase_ensembles(ast, ck, kb):
+    """Phase 16: the MultiSpacecraft leg at 512 scenarios (perturbations
+    default_rng(7) x 1e-4 about the solved baseline, as the example) and
+    the 10,001-node CartPole at 16 scenarios (default_rng(3) x 1e-3 on the
+    initial guess, as `tests/test_parallel.py`).  Returns the K1 launches
+    (narrow, wide) of each."""
+    ph = build_multispacecraft(ast)
+    ph.optimizer.set_PrintLevel(2)
+    flag = ph.optimize()
+    rflag, rit, robj = MSC_BASE
+    print(f"MultiSpacecraft baseline (LGL3, 12 segments, n "
+          f"{ph._nlp.numPrimal}): flag {flag} iters "
+          f"{ph.optimizer.LastIterNum} obj {ph.optimizer.LastObjVal:.16f} "
+          f"(JAX default {robj:.16f})")
+    check(flag == rflag and ph.optimizer.LastIterNum == rit
+          and abs(ph.optimizer.LastObjVal - robj) <= 1e-9 * robj,
+          "MultiSpacecraft baseline")
+    base = ph.makeSolverInput()
+    rng = np.random.default_rng(7)
+    perts = [rng.normal(size=base.shape) * 1e-4 for _ in range(512)]
+    out = {"MultiSpacecraft ensemble, 512 scenarios": run_ensemble(
+        ast, ck, kb, "MultiSpacecraft", ph, perts, MSC_512)}
+
+    ph = build_cartpole(ast, 5000)
+    ph.optimizer.set_PrintLevel(2)
+    ph.transcribe()
+    base = ph.makeSolverInput()
+    rng = np.random.default_rng(3)
+    perts = [rng.normal(size=base.shape) * 1e-3 for _ in range(16)]
+    out["CartPole ensemble, 10,001 nodes, 16 scenarios"] = run_ensemble(
+        ast, ck, kb, "CartPole 10,001 nodes", ph, perts)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1084,6 +1391,7 @@ def main():
     from asset_asrl_torch.Solvers import kkt_block as kb
     check(ast.config.DEVICE.type == "cuda", "port did not pick the card")
 
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1110,14 +1418,18 @@ def main():
                 "Delta III, adaptive mesh": phase_delta3_adaptive(ast, ck)}
     adaptive["auto-scaled CartPole, 10,001 nodes"] = phase_estimators(
         ast, ck, d3_phases, obj_5000)
+    del d3_phases
+    adaptive.update(phase_default_solve(ast, ck))
+    adaptive.update(phase_ensembles(ast, ck, kb))
 
     launches = {"gj_inverse": narrow, "gj_inverse_wide": wide}
-    # the launches of the solves of phases 12 to 14 (their borders stay
-    # under the wide kernel's widths)
+    # the launches of the solves of phases 12 to 16
     more = {"gj_inverse": {k: n for k, (n, _) in adaptive.items()},
             "gj_inverse_wide": {k: n for k, (_, n) in adaptive.items()}}
     source = {"gj_inverse": "asset_asrl_torch/csrc/gj_inverse.cu",
               "gj_inverse_wide": "asset_asrl_torch/csrc/gj_inverse_wide.cu"}
+
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     def shapes_of(is_wide):
         return [dict(shape=[K, W, W], **m) for (K, W), m in k1.items()

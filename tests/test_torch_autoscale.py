@@ -99,8 +99,7 @@ def single_phase(ast, ode, IG, nsegs, scaling, units=None):
     phase.addValueObjective("Back", "h", -1.0)
     phase.addBoundaryValue("Back", ["v", "m"], [0, mf])
     phase.optimizer.PrintLevel = 2
-    if ast is jast:
-        phase.optimizer.UseFused = False
+    phase.optimizer.UseFused = False    # both held to the JAX host loop
     return phase
 
 
@@ -211,8 +210,7 @@ def three_phase(ast, ode, IG, nsegs):
         p.setUnits(units)
     ocp.setAutoScaling(True, True)
     ocp.optimizer.PrintLevel = 2
-    if ast is jast:
-        ocp.optimizer.UseFused = False
+    ocp.optimizer.UseFused = False      # both held to the JAX host loop
     return ocp, (p1, p2, p3)
 
 

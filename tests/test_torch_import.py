@@ -45,7 +45,10 @@ sys.exit(1 if bad else 0)
 NEW_MODULES = ["asset_asrl_torch.Integrators", "asset_asrl_torch.Integrators.rk",
                "asset_asrl_torch.OptimalControl.mesh",
                "asset_asrl_torch.OptimalControl.interp_table",
-               "asset_asrl_torch.OptimalControl.fdtable"]
+               "asset_asrl_torch.OptimalControl.fdtable",
+               "asset_asrl_torch.Solvers.fused",
+               "asset_asrl_torch.Solvers.optprob",
+               "asset_asrl_torch.Solvers.jet", "asset_asrl_torch.parallel"]
 
 
 def test_every_module_imports_without_jax():

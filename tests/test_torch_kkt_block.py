@@ -46,17 +46,23 @@ def make_block_tridiag(K, W, b, seed=0, spd=False):
     return diag, lower, B, C, A
 
 
+def one_lane(*ts):
+    """One problem as a batch of one lane (the BCR functions' layout)."""
+    return [t[None] for t in ts]
+
+
 @pytest.mark.parametrize("K,W,b", [(1, 3, 2), (2, 3, 2), (5, 4, 3),
                                    (8, 4, 0), (13, 5, 4), (16, 2, 1)])
 def test_bcr_solve_matches_dense(K, W, b):
     diag, lower, B, C, A = make_block_tridiag(K, W, b, seed=K + W, spd=True)
-    fac, neigs = bcr_factor(*blocks_from_numpy(diag, lower, B, C, "cpu"))
+    fac, neigs = bcr_factor(*one_lane(*blocks_from_numpy(diag, lower, B, C,
+                                                         "cpu")))
     rng = np.random.default_rng(1)
     r = rng.normal(size=(K, W))
     rb = rng.normal(size=(b,))
-    y, z = bcr_solve(fac, torch.tensor(r), torch.tensor(rb))
+    y, z = bcr_solve(fac, *one_lane(torch.tensor(r), torch.tensor(rb)))
     sol = np.linalg.solve(A, np.concatenate([r.ravel(), rb]))
-    got = np.concatenate([y.numpy().ravel(), z.numpy()])
+    got = np.concatenate([y[0].numpy().ravel(), z[0].numpy()])
     assert np.allclose(got, sol, atol=1e-8), np.abs(got - sol).max()
 
 
@@ -64,8 +70,35 @@ def test_bcr_solve_matches_dense(K, W, b):
 def test_bcr_inertia(K, W, b):
     for seed in range(4):
         diag, lower, B, C, A = make_block_tridiag(K, W, b, seed=seed)
-        _, neigs = bcr_factor(*blocks_from_numpy(diag, lower, B, C, "cpu"))
-        assert int(neigs) == int(np.sum(np.linalg.eigvalsh(A) < 0)), seed
+        _, neigs = bcr_factor(*one_lane(*blocks_from_numpy(diag, lower, B,
+                                                           C, "cpu")))
+        assert int(neigs[0]) == int(np.sum(np.linalg.eigvalsh(A) < 0)), seed
+
+
+@pytest.mark.parametrize("K,W,b", [(7, 4, 3), (16, 3, 0), (13, 5, 2)])
+def test_bcr_batched_lanes_match_single(K, W, b):
+    """A batch of B problems of one structure factored and solved in one
+    call: each lane's inertia (per lane, from one K1 launch a level) and
+    solution equal those of the lane factored alone."""
+    mats = [make_block_tridiag(K, W, b, seed=s, spd=s % 2 == 0)
+            for s in range(4)]
+    rng = np.random.default_rng(2)
+    rs = rng.normal(size=(4, K, W))
+    rbs = rng.normal(size=(4, b))
+    lanes = [torch.stack(a) for a in zip(*(blocks_from_numpy(
+        *m[:4], "cpu") for m in mats))]
+    fac, neigs = bcr_factor(*lanes)
+    assert neigs.shape == (4,)
+    y, z = bcr_solve(fac, torch.tensor(rs), torch.tensor(rbs))
+    for i, m in enumerate(mats):
+        fi, ni = bcr_factor(*one_lane(*blocks_from_numpy(*m[:4], "cpu")))
+        assert int(neigs[i]) == int(ni[0]) == int(
+            np.sum(np.linalg.eigvalsh(m[4]) < 0)), i
+        yi, zi = (a[0] for a in bcr_solve(
+            fi, *one_lane(torch.tensor(rs[i]), torch.tensor(rbs[i]))))
+        scale = max(1.0, float(yi.abs().max()))
+        assert float((y[i] - yi).abs().max()) <= 1e-12 * scale, i
+        assert np.abs((z[i] - zi).numpy()).max(initial=0.0) <= 1e-12 * scale
 
 
 @pytest.fixture(scope="module")
@@ -127,11 +160,11 @@ def test_assembled_blocks_match(cartpole):
     kj, kt, state, sig_tilde = cartpole
     bj = jax_blocks(kj, state, sig_tilde)
     xt, _, lEt, lIt = state_from_numpy(*state, device="cpu")
-    _, _, _, _, fam = kt._eval_core(xt, lEt, lIt, 1.0,
+    _, _, _, _, fam = kt._eval_core(*one_lane(xt, lEt, lIt), 1.0,
                                     kt.nlp.consts_dev(), want_hess=True)
-    bt = kt._blocks_impl(fam, torch.tensor(sig_tilde))
+    bt = kt._blocks_impl(fam, torch.tensor(sig_tilde)[None])
     for a, b in zip(bj, bt):
-        a = np.asarray(a)
+        a, b = np.asarray(a), b[0]
         assert a.shape == tuple(b.shape)
         assert np.abs(a - b.numpy()).max() <= 1e-12 * np.abs(a).max()
 
@@ -140,9 +173,10 @@ def factor_both(kj, kt, bj, delta, gamma):
     facj, negj = jax.jit(kj._factor_blocks_impl)(
         bj, jnp.asarray(delta), jnp.asarray(gamma))
     fact, negt = kt._factor_blocks_impl(
-        blocks_from_numpy(*(np.asarray(a) for a in bj), device="cpu"),
+        one_lane(*blocks_from_numpy(*(np.asarray(a) for a in bj),
+                                    device="cpu")),
         delta, gamma)
-    return facj, int(negj), fact, int(negt)
+    return facj, int(negj), fact, int(negt[0])
 
 
 @pytest.mark.parametrize("delta", [0.0, 1e-4, 1e-2])

@@ -64,8 +64,7 @@ def hypersens(ast, tmode, nsegs, tf, bounds=None, path_bounds=False,
         phase.addLUVarBound("Path", 0, -50, 50)
         phase.addLUVarBound("Path", 2, -50, 50)
     phase.optimizer.PrintLevel = 2
-    if ast is jast:
-        phase.optimizer.UseFused = False
+    phase.optimizer.UseFused = False    # both held to the JAX host loop
     return phase
 
 

@@ -306,18 +306,18 @@ def test_delta3_nlp_at_initial_guess(delta3_40):
     consts = nlp.consts_dev()
     famj = jax.jit(kj._ad_impl)(xj, lEj, lIj, jnp.asarray(1.0), consts)[4]
     blocks_j = jax.jit(kj._blocks_impl)(famj, jnp.asarray(sig))
-    famt = kt._eval_core(xt, lEt, lIt, 1.0, ot._nlp.consts_dev(),
-                         want_hess=True)[4]
-    blocks_t = kt._blocks_impl(famt, torch.tensor(sig))
+    famt = kt._eval_core(xt[None], lEt[None], lIt[None], 1.0,
+                         ot._nlp.consts_dev(), want_hess=True)[4]
+    blocks_t = kt._blocks_impl(famt, torch.tensor(sig)[None])
     for a, b in zip(blocks_j, blocks_t):
-        close(a, b, 1e-11)
+        close(a, b[0], 1e-11)
 
 
 @pytest.mark.slow
 def test_delta3_solve_40():
     flag0, it0, mass0 = DELTA3[40]
     ocp, phases = build_delta3(tast, 40)
-    ocp.optimizer.set_PrintLevel(2)
+    quiet(ocp)
     assert ocp.solve_optimize() == flag0 == CONVERGED
     assert ocp.optimizer.LastIterNum == it0
     mass = phases[3].returnTraj()[-1][6] * D3["Mstar"]
@@ -331,7 +331,7 @@ def test_delta3_adaptive():
     within 0.01 kg of the published optimum."""
     flag0, segs0, mass0 = DELTA3_ADAPTIVE
     ocp, phases = build_delta3(tast, 40, adaptive=True)
-    ocp.optimizer.set_PrintLevel(2)
+    quiet(ocp)
     assert ocp.solve_optimize() == flag0 == CONVERGED
     assert [p.numSegs for p in phases] == segs0
     mass = phases[3].returnTraj()[-1][6] * D3["Mstar"]

@@ -252,6 +252,7 @@ def test_brachistochrone_transcriptions(tmode):
     flag0, it0, obj0 = BRACH_24[tmode]
     p = build_brachistochrone(tast, tmode, 24)
     p.optimizer.set_PrintLevel(2)
+    p.optimizer.UseFused = False        # BRACH_24: the JAX host loop
     assert p.optimize() == flag0 == CONVERGED
     assert p.optimizer.LastIterNum == it0
     assert abs(p.optimizer.LastObjVal - obj0) <= 1e-7 * obj0
@@ -263,6 +264,7 @@ def test_cartpole_control_modes(cmode, kwb):
     flag0, it0, obj0 = CARTPOLE_128[cmode]
     p = build_cartpole(tast, 128, "LGL5", cmode)
     p.optimizer.set_PrintLevel(2)
+    p.optimizer.UseFused = False        # CARTPOLE_128: the JAX host loop
     assert p.optimize() == flag0 == CONVERGED
     bs = p.optimizer.kkt.bs
     assert (bs.K, bs.W, bs.b) == kwb

@@ -22,6 +22,7 @@ CONVERGED = tast.Solvers.ConvergenceFlags.CONVERGED
 def solved40():
     pt = build_cartpole(tast, 40)
     pt.optimizer.set_PrintLevel(2)
+    pt.optimizer.UseFused = False       # held to the JAX host loop
     flag = pt.optimize()
     return pt, flag
 
