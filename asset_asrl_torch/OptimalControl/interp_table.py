@@ -201,10 +201,10 @@ class LGLInterpTable:
         t = self._dev_tensors.get(dev)
         if t is None:
             if self._scheme_mode:
-                t = tuple(config.tensor(a, dev) for a in (
+                t = tuple(config.cached(a, dev) for a in (
                     self._seg_t, self._seg_h, self._coef, self._ucoef))
             else:
-                t = tuple(config.tensor(a, dev) for a in (
+                t = tuple(config.cached(a, dev) for a in (
                     self.ts, self.vals, self.tangents))
             self._dev_tensors[dev] = t
         return t
@@ -215,7 +215,7 @@ class LGLInterpTable:
         from_phase (order-consistent), cubic Hermite otherwise."""
         if self._scheme_mode:
             st, sh, coef, ucoef = self._tensors()
-            tcl = torch.clamp(t, st[0], st[-1])
+            tcl = config.clip(t, st[0], st[-1])
             k = _segment_of(st, tcl, sh.shape[0] - 1)
             sig = (tcl - st[k][0]) / sh[k][0]
             x = _powers(sig, self._deg + 1) @ coef[k][0]
@@ -223,7 +223,7 @@ class LGLInterpTable:
                 return torch.cat([x, _powers(sig, self._cs) @ ucoef[k][0]])
             return x
         ts, vs, dvs = self._tensors()
-        t = torch.clamp(t, ts[0], ts[-1])
+        t = config.clip(t, ts[0], ts[-1])
         k = _segment_of(ts, t, ts.shape[0] - 2)
         t0, t1 = ts[k][0], ts[k + 1][0]
         h = t1 - t0

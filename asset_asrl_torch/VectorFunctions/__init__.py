@@ -1,8 +1,8 @@
 """asset_asrl_torch.VectorFunctions: the `vf` namespace.
 
-Ported: the core functions, the free functions of `ops`, and the runtime
-matrices.  Interpolation tables, root finders and Python-callback
-functions are not ported yet (ROADMAP queue 1).
+The core functions, the free functions of `ops`, the runtime matrices,
+interpolation tables, root finders and Python-callback functions, as the
+JAX package's namespace exports them.
 """
 
 from .function import (VectorFunction, ScalarFunction, Arguments,
@@ -14,6 +14,9 @@ from .ops import (sin, cos, tan, arcsin, arccos, arctan, arctan2,
                   min, max, quatProduct, quatRotate,
                   Scaled, RowScaled, IOScaled)
 from .matrix import MatrixFunction, RowMatrix, ColMatrix
+from .pyfunc import PyVectorFunction, PyScalarFunction
 
 # ASSET alias: vf.Stack == vf.stack
 Stack = stack
+from .interp import InterpTable1D, InterpTable2D, InterpTable3D, InterpTable4D
+from .rootfinder import ScalarRootFinder, RootFinder

@@ -38,3 +38,27 @@ def index(v, device=None):
     """int64 index tensor of `v` on `device` (default: `DEVICE`)."""
     return torch.as_tensor(v, dtype=INDEX_DTYPE,
                            device=DEVICE if device is None else device)
+
+
+def clip(x, lo=None, hi=None):
+    """`jnp.clip(x, lo, hi)` with JAX's derivative: `torch.maximum`, then
+    `torch.minimum`, against tensor bounds (a number becomes a 0-d tensor
+    of x's type on x's device), so that the derivative at a tie is 1/2 as
+    JAX's is; `torch.clamp` gives 1 there.  None skips a bound.  Use it
+    for every clip that is differentiated."""
+    def bound(v):
+        if isinstance(v, torch.Tensor):
+            return v
+        return torch.full((), float(v), dtype=x.dtype, device=x.device)
+    if lo is not None:
+        x = torch.maximum(x, bound(lo))
+    return x if hi is None else torch.minimum(x, bound(hi))
+
+
+def cached(v, device=None):
+    """`tensor(v, device)` for a cache that closures read: built outside
+    any `torch.func` transform, so that a tensor first made inside a
+    transform (a table's first lookup under `vjp`) does not belong to
+    that transform's level when a later call reads it."""
+    with torch._C._DisableFuncTorch():
+        return tensor(v, device)

@@ -62,7 +62,23 @@ Phases, each of which ends the run with a non-zero exit on failure:
    MultiSpacecraft rendezvous leg of `examples/MultiSpacecraftOptimization.py`
    at 512 scenarios and the CartPole at 10,001 nodes at 16 scenarios,
    each K1 launch covering every lane of a reduction level; lane 0 and the
-   lane with the most iterations solved alone must equal their lanes.
+   lane with the most iterations solved alone must equal their lanes;
+17. the VectorFunctions tail: the table-driven minimum time to climb
+   (`examples/MinimumTimeToClimb.py`: cubic 1-D and 2-D interpolation
+   tables in the dynamics, 50 segments) against the JAX package's default
+   solve; the Kepler-equation root-finder node in a family of 65,536 rows
+   (values, Jacobians, adjoint Hessians) against the port's CPU run and
+   the JAX package; a Python callback (`PyVectorFunction`) inside an
+   expression;
+18. Astro: an Earth to Mars porkchop grid of 262,144 Lambert solves in
+   one batched call (against JAX, the CPU, Kepler's equation and the
+   propagated arrival states), the Dionysus low-thrust transfer (MEE,
+   constant specific impulse) at 150 segments against the JAX package's
+   default solve and at 1000 segments, the EPPR and NBody frames'
+   equations of motion over 4096 rows against the CPU;
+19. the Solvers tail against its CPU results: Rosenbrock through
+   `OptimizationProblem` under three line-search modes, a phase on the
+   dense KKT backend, and `Jet.map` over three phases.
 
 Phases 5 to 14 hold the port to the JAX package's host loop, so their
 problems run the port's host loop too (`UseFused = False`); phases 15 and
@@ -71,7 +87,8 @@ just before it drives its problem and reads them just after.  The line
 before the last two is a JSON object describing every kernel of the main
 path (narrow K1 launches from phase 10, wide K1 launches from the
 256-segment run of phase 8, and under `launches_elsewhere` those of the
-solves of phases 12 to 16); then the card's name and power limit; the
+solves of phases 12 to 19); phases 17 to 19 print each run's time, peak
+device memory and K1 launches; then the card's name and power limit; the
 last line is the JSON device record.
 """
 
@@ -142,6 +159,164 @@ RETURN_BEST = (2, 4, 1.7648249876336402)
 MSC_BASE = (0, 5, 0.5942206860287187)
 MSC_512 = (0, 3, [0.594220686011265, 0.5942206860088641,
                   0.5942206860060142, 0.5942206860108289])
+# the Dionysus transfer's start mass, kg
+DIONYSUS_MASS = 4000.0
+# the JAX package's default solve of the table-driven climb at 50 segments:
+# (flag, iterations, objective)
+CLIMB_50 = (0, 16, 1.2868527875593079)
+# the JAX package's Kepler root-finder family (`kepler_family`) on the first
+# 4 rows of `kepler_rows`: values, Jacobians, adjoint Hessians, flattened
+KEPLER_FAMILY_4 = (
+    [1.3300076706179056, 2.2961415866512938, 10.028060509832011,
+     10.37200210481439, 3.122547271028688, 4.3877251577635805,
+     2.838177272405056, 4.694014264528828],
+    [0.0, 2.817149857116009, 2.5649248713794215, 0.0, 4.374371344560321,
+     3.6605279187586537, 0.0, 3.2639468847917734, 5.240883705313322, 0.0,
+     0.4067867480830542, 4.082646060171713, 0.0, 4.178384744118625,
+     3.247171463168261, 0.0, 3.3271218420611084, 3.1553785235595493, 0.0,
+     -3.2471620987526664, -3.135508691324047, 0.0, 2.9416158863757706,
+     -3.1787067634756565],
+    [0.0, 0.0, 0.0, 0.0, 1.2250796253539065, 0.13122560765682184, 0.0,
+     0.1312256076568219, 1.1104586663055764, 0.0, 0.0, 0.0, 0.0,
+     6.802074853080493, 2.9494494330588585, 0.0, 2.949449433058858,
+     -0.7402853677786007, 0.0, 0.0, 0.0, 0.0, -5.453048596221889,
+     -1.4510836293249934, 0.0, -1.4510836293249934, -0.7878760781542926,
+     0.0, 0.0, 0.0, 0.0, -2.618597783955013, 0.6849404879247415, 0.0,
+     0.6849404879247414, 0.91715380901918])
+# the JAX package's Lambert solutions (v1, v2 flattened) on the 64 seeded
+# lanes of the porkchop grid (`porkchop_lanes`)
+PORKCHOP_64 = (
+    [-0.7155731903885074, 0.7794744952207854, 0.02192824158291192,
+     -1.1255698518688502, 0.13782309702810447, 0.0034342390221335133,
+     0.5955389231717341, -0.751995326337845, -0.029684806528014116,
+     0.6314954145745333, -0.703654306370224, -0.03570890318488135,
+     0.7966207393685412, -0.6086205595584584, -0.025736556448851953,
+     0.9243894335835473, -0.3568690954692835, -0.02790795096894356,
+     -0.9098641841639569, -0.5296151178861125, 0.005224649762388366,
+     0.9978047653586052, -0.07881444867568808, -0.02546936765944851,
+     0.9330987619353295, 0.8531069121663312, -0.027437530437973125,
+     0.5994113915865678, 0.8024095722672809, 0.025271283489616048,
+     0.25948003313467854, 0.9829705129600567, 0.03075677354259261,
+     -0.5376584022355851, 0.9299089005340084, 0.01225585448957539,
+     -0.6452855219534271, 0.8316552366856742, 0.029585545908421065,
+     -0.9721871676500156, 0.47522644338421616, 0.034798799892259376,
+     -1.0272677615171633, 0.30203996424738044, 0.0360156477041897,
+     -0.4131326410059451, -1.013656755872283, -0.07094966405477357,
+     0.24854988355844063, -1.0834561660871618, -0.02248217951778182,
+     0.5834990707689001, -0.9345631732953358, -0.02066796883161779,
+     0.6081833995933753, -0.9228743932636634, -0.024012793325660416,
+     0.6361050610037078, -0.9082536456711703, -0.026822500965926206,
+     0.7206641233962878, -0.8357799049469548, -0.027391078779238527,
+     1.04564525569263, 0.031652025434623775, -0.00440592661064642,
+     0.4190419047466124, 0.33805221475563557, -0.9846557195162742,
+     0.19455388622209885, 0.9776418825373493, 0.017808210741163344,
+     -1.1135911634392044, 0.25464629221761564, -0.0036224098947041585,
+     0.29951202420453416, -1.0324251361338375, -0.014217160049016596,
+     -1.033501784163773, 0.19745461555014335, 0.015448352199686361,
+     -0.709646589136213, -0.8850696559957772, -0.02812043448284261,
+     1.0396744104828883, 0.21860356090343808, -0.021006227576947836,
+     -0.3916285919116768, -0.9876151787873292, -0.011028759839637454,
+     0.7467532294171504, 1.143182696875753, -0.021487053477965083,
+     0.45468692019566537, -0.9804234465593686, -0.01858449509805461,
+     0.33221872598777746, -1.0072935262008158, -0.017126880733946036,
+     0.5357649069327339, 0.8110502377604779, 0.015344626139296299,
+     0.41403091129784964, 1.0511574145744147, -0.015191000309643602,
+     0.7179989723617525, -0.7852916944330449, -0.01755285810003515,
+     -0.12636663270987064, 1.2655383749521114, -0.018782233198160067,
+     -0.22765265255854278, 1.0955223834658383, -0.00507303440484169,
+     -0.501078210256133, 0.9310941787644587, 0.01349287942143119,
+     -0.795112361346232, 0.6801666296353353, 0.027128728589976843,
+     -0.8942957709129994, 0.5235103568528274, 0.032665423305419654,
+     -0.9945099104384942, 0.3110183194712731, 0.031324063660975635,
+     -1.037350408804175, 0.23206721338885034, 0.035882051624904036,
+     -1.0150677841660336, -0.3137993805166033, 0.009316963877475761,
+     -1.147733268809926, -0.3310825000220386, -0.48329651891934383,
+     -1.033613802122692, -0.23503749910835436, 0.026472734115799843,
+     -0.9537346241988691, -0.4858062716159157, 0.0046900925434035096,
+     -0.16128329173520595, -1.0847857584437377, -0.04768286265229592,
+     -0.059082874959843205, -1.0992976258581213, -0.05204065451852169,
+     -0.739963171076459, -0.7826048553992474, 0.003517316930860841,
+     0.720953645979193, -0.8396901339512091, -0.034028440541797204,
+     1.0085387601921658, -0.4005813932935672, -0.010018336367857697,
+     0.9157647087169024, 0.2721442759953191, 0.540771634199707,
+     0.7933189869849384, 0.7314986888730834, 0.023603552176657026,
+     0.7330765776692713, 0.7196402381821514, -0.007156482323040464,
+     0.5841893012754245, 0.9098469347294945, 0.030320231478951024,
+     -0.1693730816845359, 1.0659727425822667, 0.03138472733569251,
+     -0.11251917506803442, 0.9921905702085344, 0.02364078297710442,
+     -0.3626817854390953, 0.9830193613433434, 0.02765946637162555,
+     -0.13343811493044536, 0.8929737272877712, 0.02427128715184447,
+     -1.0803405587757797, -0.3808317822837039, -0.060566108903896125,
+     -0.6414598931956583, -0.9410347285808505, -0.053462967765376776,
+     -0.832403663547186, -0.6711052219724746, -0.0066852107469986075,
+     1.0594296636681761, -0.016837853694674075, -0.019577298546399582],
+    [0.2536267594061198, -0.47252889085458144, -0.00510684196224354,
+     0.7268871022393143, -0.017600326690613486, -0.0024100279902060976,
+     -0.3273774684164342, -0.10850417939541328, -0.011053565156628037,
+     -0.17532715502454968, -0.2324578575233224, -0.02025250334432467,
+     -0.4569242840385629, -0.04485475552922898, -0.0015083944443502941,
+     -0.3182145752000738, -0.2948989187521164, -0.0062493775796803085,
+     0.5365971675183933, 0.2921883435071154, -0.002029259639593508,
+     -0.2439618662191868, -0.40191568768235064, -0.004325219086062113,
+     -0.9106739428315493, -0.02865259665939429, 0.03080300196362077,
+     0.556302076323487, 0.262700771048424, 0.021505562690370322,
+     0.6090103616257638, 0.272592003246361, 0.0209838951883485,
+     0.5616238994574534, -0.4085685551850968, -0.006134944287831094,
+     0.6436521320590354, 0.32192229691986596, 0.0012457702409007366,
+     0.7262855757572227, -0.06869691024422336, -0.020017881978859654,
+     0.535071805975858, 0.5224669715742953, -0.008268780589597463,
+     0.6794737586088019, 0.39041651137905037, 0.04064481192182562,
+     -0.6938940844389064, -0.15071229301681643, -0.002785510218729889,
+     -0.7195402700616071, 0.1080728435719717, 0.008242636414445666,
+     -0.7202646274375282, -0.01570544706296373, 0.007199717657811156,
+     -0.6982389638996597, -0.14571580854253344, 0.005001705473599209,
+     -0.7216239131051764, -0.005238731881094244, 0.010820420329977674,
+     -0.5473729247729243, 0.4485778955201026, 0.001666965349255727,
+     -0.008880710600627485, -0.36509253219141613, 0.5929845755088815,
+     -0.42132947672520027, -0.27072435314495913, 0.000667135064685947,
+     0.7560465716476219, 0.01492612610373726, 0.0027062238140953183,
+     -0.21300039171140606, 0.5841004621562288, 0.005901127999242507,
+     0.4980825811503348, -0.22215938161295765, -0.003788031008712585,
+     0.30100790774875325, 0.7798042785413706, 0.02506269438984802,
+     -0.5311519448702925, -0.26104067041458645, 0.007613236467832493,
+     0.2894734536934078, 0.655275760636163, 0.0065860767408984534,
+     -1.037482376970159, -0.14456652606147316, 0.03140038313518382,
+     -0.36340449894770943, 0.7151985471063886, 0.014899581569376054,
+     -0.23238784368254725, 0.7283260570102196, 0.011877170271096353,
+     0.5600304287962413, -0.025013873036219568, 0.009888204006233992,
+     -0.3843675572111379, -0.6232187310456048, 0.01137831169905901,
+     -0.5257906435042554, 0.5767185613225848, 0.012789336725653832,
+     -0.6078083921393638, -0.708868743858199, 0.02054660984187357,
+     0.030924975116513383, -0.735901147506565, 0.0036910165711130562,
+     0.5520595954391267, -0.40072091846574937, -0.00601243015886608,
+     0.6953789859896254, 0.062199208515971015, -0.008022312457719848,
+     0.3578135894859125, 0.6131423114253816, 0.007132144539891485,
+     -0.24289800439302558, 0.6652822034840093, 0.020615155490315513,
+     0.6837563986403145, 0.2511738010035021, -0.01665550175919848,
+     -0.6764356584943657, 0.14605632742605956, 0.007818288117555345,
+     0.4170170815017754, -0.8348617295517069, 0.3100854394008644,
+     0.011352668994344875, 0.7287645942822096, 0.00014829327781281634,
+     -0.6215778360143872, 0.3135658963671047, 0.002961709079950849,
+     -0.1933793689069909, -0.6368395051901169, -0.04295391407402837,
+     -0.17979971442310577, -0.635652972262894, -0.046166037168169805,
+     -0.5666834752859057, 0.4214445492526816, 0.0009565547257627677,
+     -0.41143236609652784, -0.5280370176870263, -0.010486821149722964,
+     -0.4478131686429552, 0.6142073961872098, 0.005979480983339853,
+     -0.5763399970969579, -0.18216754349101516, -0.34231819121804336,
+     -0.6855488562449372, 0.04873887382765147, -0.008112017089991486,
+     -0.3245289898065135, 0.5936309393679113, -0.0030570167743446263,
+     -0.6410870062265468, -0.16995507665664242, -0.010482989136524913,
+     -0.2829970242335674, -0.5293889721581105, -0.00850882335266228,
+     -0.4163065169051702, -0.23034484069200803, 0.005064745190782849,
+     -0.24065405955276217, -0.4774609632016976, -0.0017032140621485105,
+     -0.20434700259491573, -0.08451599786884235, 0.012788152335864255,
+     0.5438330379886679, 0.6292026842191069, 0.04900749139804271,
+     0.09302777102361029, 0.8493714748402831, 0.046398630077428143,
+     0.5764484165116467, 0.36507576979689044, 0.003512574751661263,
+     -0.5672181412156768, -0.08829609959485331, 0.006450736998698415])
+# the JAX package's default solve of the Dionysus transfer at 150 segments:
+# (flag, iterations, final mass in kg)
+DIONYSUS_150 = (0, 52, 2715.9311712080384)
 
 
 def cartpole_ode(ast):
@@ -474,6 +649,236 @@ def build_multispacecraft(ast, nsegs=12):
     return phase
 
 
+def build_dionysus(ast, nsegs=150):
+    """The mass-optimal Earth to Dionysus low-thrust transfer of
+    `examples/DionysusLowThrust.py` (modified equinoctial elements and a
+    constant-specific-impulse thruster, `Astro.MEETwoBody_CSI`; LGL5 with
+    block-constant controls, AUGLANG line searches), built with either
+    package's namespace.  The final mass in kg is the last state's mass
+    times `DIONYSUS_MASS`."""
+    A, c = ast.Astro, ast.Astro.Constants
+    thruster = A.CSIThruster(.32, 3000, DIONYSUS_MASS)
+    ode = A.MEETwoBody_CSI(c.MuSun, c.AU, thruster)
+    tf = 3534 * c.day / ode.tstar
+    X0 = np.array([0.99969, -0.00376, 0.01628, -7.702e-6, 6.188e-7, 14.161])
+    XF = np.array([1.5536, 0.15303, -0.51994, 0.01618, 0.11814, 46.3302])
+    first = np.zeros(8)
+    first[0:6], first[6] = X0, 1
+    IG = []
+    for t in np.linspace(0, tf, 500):
+        row = np.zeros(11)
+        row[0:6] = X0 + (XF - X0) * t / tf
+        row[6], row[7], row[9] = 1, t, .5
+        IG.append(row)
+    phase = ode.phase("LGL5", IG, nsegs)
+    phase.setControlMode("BlockConstant")
+    phase.addBoundaryValue("Front", range(0, 8), first)
+    phase.addLUNormBound("Path", range(8, 11), .000001, 1, 1)
+    phase.addBoundaryValue("Back", [7], [tf])
+    phase.addBoundaryValue("Back", range(0, 6), XF[0:6])
+    phase.addValueObjective("Back", 6, -1.0)
+    opt = phase.optimizer
+    opt.set_OptLSMode("AUGLANG")
+    opt.set_MaxLSIters(2)
+    opt.set_MaxAccIters(200)
+    opt.set_BoundFraction(.997)
+    opt.set_deltaH(1.0e-6)
+    opt.set_EContol(1.0e-9)
+    return phase
+
+
+# The supersonic climb's tables (`examples/MinimumTimeToClimbTables.py`:
+# F-4 aero coefficients against Mach, the 1976 standard atmosphere, thrust
+# against Mach and altitude)
+CLIMB_AERO_MACH = [0, 0.4, .6, .75, 0.8, 0.9, 1.0, 1.2, 1.4, 1.6, 1.8]
+CLIMB_CLALPHA = [3.44, 3.44, 3.44, 3.44, 3.44, 3.58, 4.44, 3.44, 3.01, 2.86,
+                 2.44]
+CLIMB_CD0 = [.013, .013, .013, .013, .013, .014, .031, .041, .039, .036,
+             .035]
+CLIMB_ETA = [0.54, 0.54, 0.54, 0.54, 0.54, 0.75, 0.79, 0.78, 0.89, 0.93,
+             0.93]
+CLIMB_RHO = [1.478e+00, 1.225e+00, 1.007e+00, 8.193e-01, 6.601e-01,
+             5.258e-01, 4.135e-01, 3.119e-01, 2.279e-01, 1.665e-01,
+             1.216e-01, 8.891e-02, 6.451e-02, 4.694e-02, 3.426e-02,
+             2.508e-02, 1.841e-02, 1.355e-02, 9.887e-03, 7.257e-03,
+             5.366e-03, 3.995e-03, 2.995e-03, 2.259e-03, 1.714e-03,
+             1.317e-03, 1.027e-03, 8.055e-04, 6.389e-04, 5.044e-04,
+             3.962e-04, 3.096e-04, 2.407e-04, 1.860e-04, 1.429e-04,
+             1.091e-04, 8.281e-05, 6.236e-05, 4.637e-05, 3.430e-05,
+             2.523e-05, 1.845e-05, 1.341e-05, 9.690e-06, 6.955e-06]
+CLIMB_SOS = [347.9, 340.3, 332.5, 324.6, 316.5, 308.1, 299.5, 295.1, 295.1,
+             295.1, 295.1, 295.1, 296.4, 297.7, 299.1, 300.4, 301.7, 303.0,
+             306.5, 310.1, 313.7, 317.2, 320.7, 324.1, 327.5, 329.8, 329.8,
+             328.8, 325.4, 322.0, 318.6, 315.1, 311.5, 308.0, 304.4, 300.7,
+             297.1, 293.4, 290.7, 288.0, 285.3, 282.5, 279.7, 276.9, 274.1]
+CLIMB_THRUST_MACH = [0, 0.2, 0.4, 0.6, 0.8, 1, 1.2, 1.4, 1.6, 1.8]
+CLIMB_THRUST_ALT = [-.5, 0, 5, 10, 15, 20, 25, 30, 40, 50, 70]   # 1000 ft
+CLIMB_THRUST = [                                                # 1000 lbf
+    [24.2, 24.2, 24.0, 20.3, 17.3, 14.5, 12.2, 10.2, 5.7, 3.4, 0.1],
+    [28.0, 28.0, 24.6, 21.1, 18.1, 15.2, 12.8, 10.7, 6.5, 3.9, 0.2],
+    [28.3, 28.3, 25.2, 21.9, 18.7, 15.9, 13.4, 11.2, 7.3, 4.4, 0.4],
+    [30.8, 30.8, 27.2, 23.8, 20.5, 17.3, 14.7, 12.3, 8.1, 4.9, 0.8],
+    [34.5, 34.5, 30.3, 26.6, 23.2, 19.8, 16.8, 14.1, 9.4, 5.6, 1.1],
+    [37.9, 37.9, 34.3, 30.4, 26.8, 23.3, 19.8, 16.8, 11.2, 6.8, 1.4],
+    [36.1, 36.1, 38.0, 34.9, 31.3, 27.3, 23.6, 20.1, 13.4, 8.3, 1.7],
+    [36.1, 36.1, 36.6, 38.5, 36.1, 31.6, 28.1, 24.2, 16.2, 10.0, 2.2],
+    [36.1, 36.1, 35.2, 42.1, 38.7, 35.7, 32.0, 28.1, 19.3, 11.9, 2.9],
+    [36.1, 36.1, 33.8, 45.7, 41.3, 39.8, 34.6, 31.1, 21.7, 13.3, 3.1]]
+
+
+def build_climb(ast, nsegs=50):
+    """The supersonic minimum time to climb of `examples/MinimumTimeToClimb.py`
+    (LGL5, HighestOrderSpline controls), its dynamics closed over the
+    example's cubic 1-D and 2-D `vf.InterpTable` tables, built with either
+    package's namespace.  The objective is the climb time in units of 250
+    s."""
+    vf, oc = ast.VectorFunctions, ast.OptimalControl
+    alts = np.arange(-2000.0, 86001.0, 2000.0)
+    rhoTab = vf.InterpTable1D(alts, CLIMB_RHO, kind="cubic")
+    sosTab = vf.InterpTable1D(alts, CLIMB_SOS, kind="cubic")
+    ClalphaTab = vf.InterpTable1D(CLIMB_AERO_MACH, CLIMB_CLALPHA,
+                                  kind="cubic")
+    etaTab = vf.InterpTable1D(CLIMB_AERO_MACH, CLIMB_ETA, kind="cubic")
+    CD0Tab = vf.InterpTable1D(CLIMB_AERO_MACH, CLIMB_CD0, kind="cubic")
+    ThrustTab = vf.InterpTable2D(
+        CLIMB_THRUST_MACH, 304.8 * np.array(CLIMB_THRUST_ALT),
+        4448.2 * np.array(CLIMB_THRUST).T, kind="cubic")
+    g0, Lstar, Tstar, Mstar = 9.80665, 10000, 250.0, 19050.864
+    Vstar, Rhostar = Lstar / Tstar, Mstar / Lstar ** 3
+    Fstar = Lstar / Tstar ** 2 * Mstar
+    mu = 3.986012e14 / (Lstar ** 3 / Tstar ** 2)
+    Re, S = 6378145 / Lstar, 49.2386 / Lstar ** 2
+    vexhaust = 1600 * g0 / Vstar
+
+    class AirPlane(oc.ODEBase):
+        def __init__(self):
+            XtU = oc.ODEArguments(4, 1)
+            h, v, fpa, mass = XtU.XVec().tolist()
+            alpha = XtU.UVar(0)
+            rho = rhoTab(h * Lstar) / Rhostar
+            Mach = v / (sosTab(h * Lstar) / Vstar)
+            Clalpha = ClalphaTab(Mach)
+            Thrust = ThrustTab(Mach, h * Lstar) / Fstar
+            CD = CD0Tab(Mach) + etaTab(Mach) * Clalpha * (alpha ** 2)
+            q = 0.5 * rho * (v ** 2)
+            D, L = q * S * CD, q * S * Clalpha * alpha
+            r = h + Re
+            super().__init__(vf.stack([
+                v * vf.sin(fpa),
+                (Thrust * vf.cos(alpha) - D) / mass
+                - mu * vf.sin(fpa) / (r ** 2),
+                (Thrust * vf.sin(alpha) + L) / (mass * v)
+                + vf.cos(fpa) * (v / r - mu / (v * (r ** 2))),
+                -Thrust / vexhaust]), 4, 1)
+
+    ht0, htf = .010 / Lstar, 19994.88 / Lstar
+    vt0, vtf = 129.314 / Vstar, 295.092 / Vstar
+    mass0 = 19050.864 / Mstar
+    XtU0 = np.array([ht0, vt0, 0, mass0, 0, 0])
+    XtUf = np.array([htf, vtf, 0, mass0, 200 / Tstar, 0])
+    IG = [XtU0 * (1 - t) + XtUf * t for t in np.linspace(0, 1, 100)]
+    phase = AirPlane().phase("LGL5", IG, nsegs)
+    phase.setControlMode("HighestOrderSpline")
+    phase.addBoundaryValue("First", range(0, 5), [ht0, vt0, 0, mass0, 0])
+    phase.addLUVarBound("Path", 0, 0, 21000.0 / Lstar)
+    phase.addLUVarBound("Path", 1, 5 / Vstar, 600 / Vstar)
+    phase.addLUVarBound("Path", 2, -20 * np.pi / 180, 40 * np.pi / 180)
+    phase.addLowerVarBound("Last", 3, 16500 / Mstar)
+    phase.addLUVarBound("Path", 5, -np.pi / 4, np.pi / 4)
+    phase.addBoundaryValue("Last", range(0, 3), [htf, vtf, 0])
+    phase.addDeltaTimeObjective(1.0)
+    return phase
+
+
+def kepler_family(ast, **kw):
+    """A family row [E_guess, e, M] -> two functions of the root E of
+    Kepler's equation E - e sin E = M (`vf.ScalarRootFinder`), built with
+    either package's namespace."""
+    vf = ast.VectorFunctions
+    X = vf.Arguments(3)
+    rf = vf.ScalarRootFinder(X[0] - X[1] * vf.sin(X[0]) - X[2], **kw)
+    return vf.stack([rf * X[2] + X[1] ** 2 * rf,
+                     vf.sin(rf * X[1]) + rf * rf])
+
+
+def kepler_rows(n, seed=21):
+    """Seeded rows [M, e, M] of `kepler_family` (e up to 0.8) and
+    multipliers in [-1, 1] for its adjoint Hessians; the first rows of a
+    larger draw are the rows of a smaller one."""
+    u = np.random.default_rng(seed).random((n, 4))
+    e, M = 0.8 * u[:, 0], np.pi * (2 * u[:, 1] - 1)
+    return np.stack([M, e, M], axis=1), 2 * u[:, 2:] - 1
+
+
+# Heliocentric elements [a (AU), e, i, RAAN, argp, M at t = 0] of Earth and
+# Mars (J2000 ecliptic, rounded), mu = 1: one time unit is 58.13 days
+EARTH_OE = [1.00000261, 0.01671123, 0.0, 0.0, 1.79676742, -0.04333]
+MARS_OE = [1.52371034, 0.09339410, 0.03228, 0.86495, 5.00040, 0.33800]
+
+
+def orbit_positions(oe, ts):
+    """Positions (n, 3) at times ts on the Keplerian orbit with elements
+    oe (mu = 1), from Kepler's equation in numpy: the same inputs for
+    either package."""
+    a, e, i, raan, argp, M0 = oe
+    M = M0 + np.asarray(ts, float) * a ** -1.5
+    E = M.copy()
+    for _ in range(30):
+        E = E - (E - e * np.sin(E) - M) / (1 - e * np.cos(E))
+    cO, sO, co, so, ci, si = (np.cos(raan), np.sin(raan), np.cos(argp),
+                              np.sin(argp), np.cos(i), np.sin(i))
+    P = np.array([cO * co - sO * so * ci, sO * co + cO * so * ci, so * si])
+    Q = np.array([-cO * so - sO * co * ci, -sO * so + cO * co * ci, co * si])
+    x, y = a * (np.cos(E) - e), a * np.sqrt(1 - e * e) * np.sin(E)
+    return x[:, None] * P + y[:, None] * Q
+
+
+def porkchop(ndep=512, ntof=512):
+    """An Earth to Mars porkchop grid: ndep departure dates over 27 time
+    units (4.3 years) x ntof times of flight from 1.5 to 8 time units (87 to
+    465 days).  Returns (r1, r2, tof), one row a transfer, departure-major."""
+    dep = np.linspace(0.0, 27.0, ndep)
+    tof = np.linspace(1.5, 8.0, ntof)
+    r1 = np.repeat(orbit_positions(EARTH_OE, dep), ntof, axis=0)
+    arrive = (dep[:, None] + tof[None, :]).ravel()
+    return r1, orbit_positions(MARS_OE, arrive), np.tile(tof, ndep)
+
+
+def conic_residuals(r1, v1, r2, v2, tof):
+    """How far each transfer (r1, v1) -> (r2, v2) in time tof (mu = 1) is
+    from a two-body arc, in numpy, without a propagator or a Lambert
+    solver: the time of flight from Kepler's equation between the two
+    ends' mean anomalies (elliptic lanes modulo one period) less tof, and
+    the differences of the angular momentum, the energy and the
+    eccentricity vector between the two ends.  Returns the lanes' largest
+    of the four."""
+    h1, h2 = np.cross(r1, v1), np.cross(r2, v2)
+    R1, R2 = np.linalg.norm(r1, axis=1), np.linalg.norm(r2, axis=1)
+    en1 = 0.5 * (v1 * v1).sum(1) - 1 / R1
+    en2 = 0.5 * (v2 * v2).sum(1) - 1 / R2
+    e1 = np.cross(v1, h1) - r1 / R1[:, None]
+    e2 = np.cross(v2, h2) - r2 / R2[:, None]
+    a, e = -0.5 / en1, np.linalg.norm(e1, axis=1)
+    ell = a > 0
+    sa = np.sqrt(np.abs(a))
+
+    def mean_anomaly(r, v, R):
+        with np.errstate(invalid="ignore"):
+            E = np.arctan2((r * v).sum(1) / sa, 1 - R / a)
+            H = np.arcsinh((r * v).sum(1) / (e * sa))
+        return np.where(ell, E - e * np.sin(E), e * np.sinh(H) - H)
+    dM = mean_anomaly(r2, v2, R2) - mean_anomaly(r1, v1, R1)
+    dM = np.where(ell, np.mod(dM, 2 * np.pi), dM)
+    return np.max([np.abs(dM * sa ** 3 - tof), np.abs(h1 - h2).max(1),
+                   np.abs(en1 - en2), np.abs(e1 - e2).max(1)], axis=0)
+
+
+def porkchop_lanes(n=64, seed=31, total=512 * 512):
+    """The seeded lanes of the full grid held against the JAX package."""
+    return np.sort(np.random.default_rng(seed).choice(total, n,
+                                                      replace=False))
+
+
 def quasi_definite_blocks(K, W, seed, dtype):
     """Seeded symmetric quasi-definite blocks: a positive definite
     leading half and a negative definite trailing half, as the
@@ -565,13 +970,14 @@ K1_SHAPES = [(2500, 24), (1250, 24), (156, 24), (1, 24), (5002, 25),
              (2501, 25), (1, 1), (1, 2), (514, 8), (25, 11), (13, 27), (3, 32), (3, 33),
              (65, 42), (3, 64), (1, 65), (1, 85), (1, 160), (1, 255),
              (1, 261), (2, 511), (1, 517), (1, 1029), (40000, 24),
-             (3072, 22), (512, 3)]
-# the last three: the first reduction level of the 16-lane CartPole
-# ensemble (16 x 2500 blocks), the first level and the border of the
-# 512-lane MultiSpacecraft ensemble (512 x 6 blocks, 512 borders)
+             (3072, 22), (512, 3), (500, 45)]
+# then: the first reduction level of the 16-lane CartPole ensemble (16 x
+# 2500 blocks), the first level and the border of the 512-lane
+# MultiSpacecraft ensemble (512 x 6 blocks, 512 borders), and the first
+# level of the Dionysus transfer at 1000 segments (phase 18)
 K1_TIMED = [(2500, 24), (156, 24), (1, 24), (5002, 25), (2501, 25),
             (514, 8), (25, 11), (1, 255), (1, 261), (1, 517), (1, 1029),
-            (40000, 24), (3072, 22), (512, 3)]
+            (40000, 24), (3072, 22), (512, 3), (500, 45)]
 # the shape of each kernel's entry in the kernels line, and the run that
 # its launches are read from: the first reduction level of Delta III at
 # 10,004 nodes, the border of formation flying at 256 segments
@@ -1382,6 +1788,385 @@ def phase_ensembles(ast, ck, kb):
     return out
 
 
+@contextlib.contextmanager
+def on_cpu(ast):
+    """Build and run on the CPU inside the block (the port's own CPU run,
+    which a card result is held to)."""
+    dev = ast.config.DEVICE
+    ast.config.use_device("cpu")
+    try:
+        yield
+    finally:
+        ast.config.use_device(dev)
+
+
+def family_all(f, x, lam):
+    """Values, Jacobians and forward-over-reverse adjoint Hessians of f
+    over the rows of x (multipliers lam), one vmapped pass."""
+    from torch.func import jacfwd, vjp, vmap
+
+    def all3(y, l):
+        ag = lambda z: vjp(f.trace, z)[1](l)[0]  # noqa: E731
+        return f.trace(y), jacfwd(f.trace)(y), jacfwd(ag)(y)
+    return vmap(all3)(x, lam)
+
+
+def worst(a, b):
+    """Largest deviation of b from a, relative to a's largest entry (1 at
+    least): tensors on any device or numpy."""
+    a = [np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in a]
+    b = [np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in b]
+    return max(float(np.abs(u - v).max() / max(1.0, np.abs(u).max()))
+               for u, v in zip(a, b))
+
+
+def report(name, secs, peak, n1, nw):
+    print(f"  [{name}] {secs:.3f} s, peak device memory "
+          f"{peak / 2**20:.1f} MiB, K1 launches {n1} narrow / {nw} wide")
+
+
+def phase_vf_tail(ast, ck):
+    """Phase 17: the VectorFunctions tail on the card.  The table-driven
+    climb (cubic 1-D and 2-D `vf.InterpTable`s in the dynamics) at the
+    example's 50 segments under the default solve, against the JAX CPU
+    default solve (flag, iterations, objective to 1e-9); the Kepler
+    root-finder node in a family of 65,536 rows (values, Jacobians,
+    adjoint Hessians) against the port's CPU run on 256 rows (1e-12) and
+    the JAX package's numbers on 4 (1e-10); a `PyVectorFunction` inside
+    an expression, whose Jacobian on the card equals the CPU's (1e-12).
+    Returns the K1 launches of the climb."""
+    vf = ast.VectorFunctions
+    reset_peak_memory()
+    ph = build_climb(ast, 50)
+    opt = ph.optimizer
+    opt.set_PrintLevel(2)
+    flag, n1, nw, secs = counted(ck, ph.optimize)
+    rflag, rit, robj = CLIMB_50
+    obj = opt.LastObjVal
+    tclimb = ph.returnTraj()[-1][4] * 250.0
+    print(f"climb with tables, 50 segments: flag {flag} iters "
+          f"{opt.LastIterNum} obj {obj:.16f} (JAX default {robj:.16f}), "
+          f"climb time {tclimb:.3f} s, {fused_line(opt, secs)}")
+    report("climb", secs, torch.cuda.max_memory_allocated(), n1, nw)
+    check(flag == rflag and opt.LastIterNum == rit, "climb: flag/iterations")
+    check(abs(obj - robj) <= 1e-9 * abs(robj), "climb: objective")
+    check(n1 > 0, "climb: K1 never launched")
+    out = {"phase 17, climb with tables, 50 segments": (n1, nw)}
+
+    reset_peak_memory()
+    x, lam = kepler_rows(65536)
+    f = kepler_family(ast)
+    X, L = ast.config.tensor(x), ast.config.tensor(lam)
+    family_all(f, X[:8], L[:8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = family_all(f, X, L)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with on_cpu(ast):
+        fc = kepler_family(ast)
+        cpu = family_all(fc, ast.config.tensor(x[:256]),
+                         ast.config.tensor(lam[:256]))
+    d_cpu = worst(cpu, [g[:256] for g in got])
+    ref = [np.reshape(r, (4, -1)) for r in KEPLER_FAMILY_4]
+    d_jax = worst(ref, [g[:4].reshape(4, -1) for g in got])
+    print(f"Kepler root-finder family, 65,536 rows: values, Jacobians and "
+          f"adjoint Hessians in {secs:.3f} s ({65536 / secs:.0f} rows/s); "
+          f"against the CPU on 256 rows {d_cpu:.2e}, against JAX on 4 "
+          f"rows {d_jax:.2e}")
+    report("root-finder family", secs, torch.cuda.max_memory_allocated(),
+           0, 0)
+    check(all(torch.isfinite(g).all() for g in got),
+          "root-finder family: not finite")
+    check(d_cpu <= 1e-12, "root-finder family: card differs from the CPU")
+    check(d_jax <= 1e-10, "root-finder family: card differs from JAX")
+
+    calls = [0]
+
+    def host(z):
+        calls[0] += 1
+        return np.array([z[0] * np.sin(z[1]) + z[2] ** 2,
+                         np.exp(0.3 * z[0]) * z[1] - z[2]])
+
+    def expr():
+        pf = vf.PyVectorFunction(3, 2, host)
+        a = vf.Arguments(4)
+        return vf.stack([pf.eval(vf.stack([a[0] * a[3], vf.cos(a[1]),
+                                           a[2] + a[3]])) * a[3],
+                         vf.sin(a[0])])
+    e = expr()
+    pt = np.array([0.3, 0.2, -0.4, 1.2])
+    with on_cpu(ast):
+        jc = expr().jacobian(pt)
+    jg = e.jacobian(pt)
+    e.compute(pt)
+    reps = 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        e.compute(pt)
+    t_val = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        e.jacobian(pt)
+    t_jac = (time.perf_counter() - t0) / reps
+    d = float(np.abs(jg - jc).max() / max(1.0, np.abs(jc).max()))
+    print(f"PyVectorFunction in an expression: Jacobian on the card against "
+          f"the CPU {d:.2e}; {1e3 * t_val:.3f} ms a value, {1e3 * t_jac:.3f} "
+          f"ms a Jacobian (host callback and copies included)")
+    check(d <= 1e-12, "PyVectorFunction: card Jacobian differs from the CPU")
+    return out
+
+
+def phase_astro(ast, ck):
+    """Phase 18: Astro on the card.  An Earth to Mars porkchop grid of
+    512 x 512 single-revolution Lambert solves in one batched call,
+    against the JAX package on 64 seeded lanes (1e-10) and the port's CPU
+    run on 4096 (1e-12), every lane a two-body arc by Kepler's equation
+    and the conserved quantities (`conic_residuals`, 1e-10), and every
+    lane propagated by `propagate_kepler` (16 chained steps) onto its
+    arrival state (1e-8; a lane whose transfer passes within 0.1 AU of
+    the Sun, where the universal-variable Newton of the propagator does
+    not always converge, in the JAX package too, is held to the CPU run
+    and to `conic_residuals` instead);
+    the Dionysus transfer at 150 segments against the JAX CPU default
+    solve (flag, iterations, final mass to 1e-9) and at 1000 segments
+    (flag 0, mass above 2700 kg); the EPPR frame (`TwoBodyAnalytic`, N =
+    800) and the NBody equations of motion over 4096 rows against the CPU
+    (1e-9).  Returns the K1 launches of the solves."""
+    from asset_asrl_torch.Astro import kepler as kp
+    A = ast.Astro
+    out = {}
+    r1, r2, tof = porkchop()
+    n = tof.shape[0]
+    reset_peak_memory()
+    R1, R2, TOF = (ast.config.tensor(a) for a in (r1, r2, tof))
+    with torch.no_grad():
+        kp._lambert_core(R1[:64], R2[:64], TOF[:64], 1.0, False, 0, False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        V1, V2 = kp._lambert_core(R1, R2, TOF, 1.0, False, 0, False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    v1, v2 = A.lambert_izzo_batch(r1, r2, tof)
+    host_secs = time.perf_counter() - t0
+    print(f"porkchop grid, Earth to Mars, {n} Lambert solves: {secs:.4f} s "
+          f"on the card ({n / secs:.0f} solves/s; the host call with its "
+          f"copies {host_secs:.4f} s); peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    report("porkchop Lambert", secs, peak, 0, 0)
+    check(np.isfinite(v1).all() and np.isfinite(v2).all(),
+          "porkchop: not finite")
+    k = porkchop_lanes()
+    d_jax = worst([np.reshape(PORKCHOP_64[0], (64, 3)),
+                   np.reshape(PORKCHOP_64[1], (64, 3))], [v1[k], v2[k]])
+    sub = np.random.default_rng(32).choice(n, min(n, 4096), replace=False)
+    with on_cpu(ast):
+        c1, c2 = A.lambert_izzo_batch(r1[sub], r2[sub], tof[sub])
+    d_cpu = worst([c1, c2], [v1[sub], v2[sub]])
+    x = np.concatenate([r1, v1], axis=1)
+    t0 = time.perf_counter()
+    for _ in range(16):
+        x = A.propagate_kepler(x, tof / 16)
+    t_prop = time.perf_counter() - t0
+    miss = ~((np.abs(x[:, :3] - r2).max(1) <= 1e-8)
+             & (np.abs(x[:, 3:] - v2).max(1) <= 1e-8))
+    h = np.cross(r1, v1)
+    a = -0.5 / (0.5 * (v1 * v1).sum(1) - 1.0 / np.linalg.norm(r1, axis=1))
+    rp = a * (1 - np.sqrt(np.maximum(0.0, 1 - (h * h).sum(1) / a)))
+    grazing = rp < 0.1
+    with on_cpu(ast):
+        g1, g2 = A.lambert_izzo_batch(r1[miss], r2[miss], tof[miss])
+    d_miss = worst([g1, g2], [v1[miss], v2[miss]]) if miss.any() else 0.0
+    conic = conic_residuals(r1, v1, r2, v2, tof)
+    print(f"  against JAX on 64 seeded lanes {d_jax:.2e}; against the CPU "
+          f"on 4096 lanes {d_cpu:.2e}; two-body arcs by Kepler's equation: "
+          f"largest residual {conic.max():.2e} (the lanes that do not land "
+          f"{conic[miss].max() if miss.any() else 0.0:.2e}); propagated in "
+          f"16 steps ({t_prop:.3f} s): {n - miss.sum()} lanes land on their "
+          f"arrival state (1e-8), {miss.sum()} do not, all of them passing "
+          f"within 0.1 AU of the Sun ({grazing.sum()} lanes do), those "
+          f"against the CPU {d_miss:.2e}")
+    check(d_jax <= 1e-10, "porkchop: card differs from JAX")
+    check(d_cpu <= 1e-12, "porkchop: card differs from the CPU")
+    check(conic.max() <= 1e-10, "porkchop: a lane is not a two-body arc")
+    check(not (miss & ~grazing).any() and miss.sum() <= n // 1000,
+          "porkchop: a lane does not land on its arrival state")
+    check(d_miss <= 1e-12, "porkchop: a sun-grazing lane differs from the CPU")
+
+    reset_peak_memory()
+    ph = build_dionysus(ast, 150)
+    opt = ph.optimizer
+    opt.set_PrintLevel(2)
+    ph.transcribe()
+    flag, n1, nw, secs = counted(ck, ph.optimize)
+    mass = ph.returnTraj()[-1][6] * DIONYSUS_MASS
+    rflag, rit, rmass = DIONYSUS_150
+    print(f"Dionysus, 150 segments: flag {flag} iters {opt.LastIterNum} "
+          f"final mass {mass:.10f} kg (JAX default {rflag}, {rit}, "
+          f"{rmass:.10f} kg); time-to-solution {fused_line(opt, secs)}")
+    report("Dionysus 150", secs, torch.cuda.max_memory_allocated(), n1, nw)
+    check(flag == rflag and opt.LastIterNum == rit,
+          "Dionysus 150: flag/iterations")
+    check(abs(mass - rmass) <= 1e-9 * rmass, "Dionysus 150: final mass")
+    check(n1 > 0, "Dionysus 150: K1 never launched")
+    out["phase 18, Dionysus, 150 segments"] = (n1, nw)
+
+    reset_peak_memory()
+    ph = build_dionysus(ast, 1000)
+    opt = ph.optimizer
+    opt.set_PrintLevel(2)
+    t0 = time.perf_counter()
+    ph.transcribe()
+    torch.cuda.synchronize()
+    t_tr = time.perf_counter() - t0
+    from asset_asrl_torch.Solvers import kkt_block as kb
+    with k1_log(kb) as shapes:
+        flag, n1, nw, secs = counted(ck, ph.optimize)
+    traj = np.asarray(ph.returnTraj())
+    mass = traj[-1][6] * DIONYSUS_MASS
+    bs = opt.kkt.bs
+    print(f"Dionysus, 1000 segments ({ph.numNodes} nodes; K {bs.K} W {bs.W} "
+          f"b {bs.b}): flag {flag} iters {opt.LastIterNum} final mass "
+          f"{mass:.10f} kg; transcription {t_tr:.3f} s, time-to-solution "
+          f"{fused_line(opt, secs)}")
+    counts = {}
+    for k in shapes:
+        counts[k] = counts.get(k, 0) + 1
+    print("  K1 launch shapes (blocks, width): count " + ", ".join(
+        f"{k}: {v}" for k, v in sorted(counts.items(), reverse=True)))
+    report("Dionysus 1000", secs, torch.cuda.max_memory_allocated(), n1, nw)
+    check(traj.shape == (2001, 11) and np.isfinite(traj).all(),
+          "Dionysus 1000: trajectory")
+    check(flag == 0 and mass > 2700, "Dionysus 1000: flag/final mass")
+    out["phase 18, Dionysus, 1000 segments"] = (n1, nw)
+
+    from asset_asrl_torch.Astro import Extensions as E
+    c = A.Constants
+    JD0, JDF = 2459000.5, 2459060.5
+
+    def frames():
+        eppr = E.EPPRFrame.TwoBodyAnalytic("EARTH", c.MuEarth, "MOON",
+                                           c.MuMoon, c.LD, JD0, JDF,
+                                           ecc=0.0549, N=800)
+        a = ast.VectorFunctions.Arguments(7)
+        f1 = eppr.EPPREOMs(a.head3(), a.segment3(3), a[6])
+        tstar = np.sqrt(c.AU ** 3 / c.MuSun)
+        tf = (JDF - JD0) * 24 * 3600 / tstar
+        sun = [np.array([0, 0, 0, 0, 0, 0, t])
+               for t in np.linspace(0, tf, 401)]
+        nb = E.NBodyFrame("SUN", c.MuSun, c.AU, JD0, JDF, P1Data=sun)
+        nb.AddBodyTable("JUPITER", E.KeplerianEphemeris(
+            1.0, [5.2, 0.048, 0.02, 0, 0, 0.5], 0, tf, 400), c.MuJupiter)
+        f2 = nb.NBodyEOMs(a.head3(), a.segment3(3), a[6])
+        return f1, f2, tf
+
+    reset_peak_memory()
+    t0 = time.perf_counter()
+    f1, f2, tf = frames()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    rng = np.random.default_rng(41)
+    rows = np.concatenate([rng.normal(size=(4096, 3)) * 0.3 + [0.6, 0, 0],
+                           rng.normal(size=(4096, 3)) * 0.2,
+                           rng.uniform(0.0, 1.0, (4096, 1))], axis=1)
+    rows_eppr, rows_nb = rows.copy(), rows.copy()
+    rows_eppr[:, 6] *= 13.0
+    rows_nb[:, 6] *= tf
+    lam = rng.normal(size=(4096, 6))
+    res = []
+    for f, r in ((f1, rows_eppr), (f2, rows_nb)):
+        X, L = ast.config.tensor(r), ast.config.tensor(lam)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = family_all(f, X, L)
+        torch.cuda.synchronize()
+        res.append((got, time.perf_counter() - t0))
+    with on_cpu(ast):
+        g1, g2, _ = frames()
+        cpu = [family_all(g, ast.config.tensor(r), ast.config.tensor(lam))
+               for g, r in ((g1, rows_eppr), (g2, rows_nb))]
+    d = [worst(cc, gg) for cc, (gg, _) in zip(cpu, res)]
+    print(f"EPPR frame (N = 800) and NBody frame built in {t_build:.3f} s on "
+          f"the card; EOM families over 4096 rows (values, Jacobians, "
+          f"adjoint Hessians): EPPR {res[0][1]:.3f} s, NBody {res[1][1]:.3f} "
+          f"s; against the CPU {d[0]:.2e}, {d[1]:.2e}")
+    report("frames", t_build + res[0][1] + res[1][1],
+           torch.cuda.max_memory_allocated(), 0, 0)
+    check(max(d) <= 1e-9, "frames: card differs from the CPU")
+    return out
+
+
+def phase_solvers_tail(ast, ck):
+    """Phase 19: what only the CPU had run of the Solvers tail, each
+    against its CPU result: Rosenbrock through `OptimizationProblem` (the
+    dense KKT, host loop) under NOLS, AUGLANG and L1; a Brachistochrone
+    phase with `setKKTBackend("dense")` (host loop); `Jet.map` over three
+    phases (the default solve).  Flags and iterations equal, results to
+    1e-9.  Returns the K1 launches of the Jet phases."""
+    vf = ast.VectorFunctions
+
+    def rosenbrock(mode):
+        xy = vf.Arguments(2)
+        prob = ast.Solvers.OptimizationProblem()
+        prob.setVars([-1, -1])
+        prob.addObjective((1 - xy[0]) ** 2 + 100 * (xy[1] - xy[0] ** 2) ** 2,
+                          [0, 1])
+        prob.addInequalCon(vf.Arguments(2).squared_norm() - 2.0, [0, 1])
+        prob.optimizer.set_OptLSMode(mode)
+        prob.optimizer.PrintLevel = 3
+        return prob
+
+    def dense():
+        p = build_brachistochrone(ast, "LGL3", 16)
+        p.optimizer.set_PrintLevel(2)
+        p.optimizer.UseFused = False
+        p.setKKTBackend("dense")
+        return p
+
+    def jet():
+        def gen(n):
+            p = build_brachistochrone(ast, "LGL5", n)
+            p.optimizer.set_PrintLevel(2)
+            return p
+        return ast.Solvers.Jet.map(gen, [12, 16, 20], nthreads=3)
+
+    def summary(p):
+        o = p.optimizer
+        x = p.returnVars() if hasattr(p, "returnVars") \
+            else np.asarray(p.returnTraj())
+        return o.ConvergeFlag, o.LastIterNum, o.LastObjVal, x
+
+    def solve(probs):
+        for p in probs:
+            p.optimize()
+        return probs
+
+    runs = [("OptimizationProblem " + m, lambda m=m: solve([rosenbrock(m)]))
+            for m in ("NOLS", "AUGLANG", "L1")]
+    runs += [("dense KKT phase", lambda: solve([dense()])), ("Jet.map", jet)]
+    out = {}
+    for name, run in runs:
+        reset_peak_memory()
+        probs, n1, nw, secs = counted(ck, run)
+        got = [summary(p) for p in probs]
+        with on_cpu(ast):
+            cpu = [summary(p) for p in run()]
+        ok = len(got) == len(cpu) and all(
+            g[0] == c[0] == 0 and g[1] == c[1]
+            and abs(g[2] - c[2]) <= 1e-9 * max(1.0, abs(c[2]))
+            and worst([c[3]], [g[3]]) <= 1e-9 for g, c in zip(got, cpu))
+        print(f"{name}: flags {[g[0] for g in got]} iters "
+              f"{[g[1] for g in got]} objs {[f'{g[2]:.14f}' for g in got]} "
+              f"(CPU iters {[c[1] for c in cpu]})")
+        report(name, secs, torch.cuda.max_memory_allocated(), n1, nw)
+        check(ok, f"{name}: the card differs from the CPU")
+        out["phase 19, " + name] = (n1, nw)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1421,9 +2206,13 @@ def main():
     del d3_phases
     adaptive.update(phase_default_solve(ast, ck))
     adaptive.update(phase_ensembles(ast, ck, kb))
+    for new_phase in (phase_vf_tail, phase_astro, phase_solvers_tail):
+        t0 = time.perf_counter()
+        adaptive.update(new_phase(ast, ck))
+        print(f"{new_phase.__name__}: {time.perf_counter() - t0:.1f} s")
 
     launches = {"gj_inverse": narrow, "gj_inverse_wide": wide}
-    # the launches of the solves of phases 12 to 16
+    # the launches of the solves of phases 12 to 19
     more = {"gj_inverse": {k: n for k, (n, _) in adaptive.items()},
             "gj_inverse_wide": {k: n for k, (_, n) in adaptive.items()}}
     source = {"gj_inverse": "asset_asrl_torch/csrc/gj_inverse.cu",

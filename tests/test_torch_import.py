@@ -48,7 +48,17 @@ NEW_MODULES = ["asset_asrl_torch.Integrators", "asset_asrl_torch.Integrators.rk"
                "asset_asrl_torch.OptimalControl.fdtable",
                "asset_asrl_torch.Solvers.fused",
                "asset_asrl_torch.Solvers.optprob",
-               "asset_asrl_torch.Solvers.jet", "asset_asrl_torch.parallel"]
+               "asset_asrl_torch.Solvers.jet", "asset_asrl_torch.parallel",
+               "asset_asrl_torch.VectorFunctions.interp",
+               "asset_asrl_torch.VectorFunctions.rootfinder",
+               "asset_asrl_torch.VectorFunctions.pyfunc",
+               "asset_asrl_torch.VectorFunctions.Extensions.DerivChecker",
+               "asset_asrl_torch.Astro.J2", "asset_asrl_torch.Astro.Frames",
+               "asset_asrl_torch.Astro.AstroModels",
+               "asset_asrl_torch.Astro.AstroConstraints",
+               "asset_asrl_torch.Astro.Extensions.EPPRFrame",
+               "asset_asrl_torch.Astro.Extensions.NBodyFrame",
+               "asset_asrl_torch.Astro.Extensions.frame_kinematics"]
 
 
 def test_every_module_imports_without_jax():
@@ -60,6 +70,33 @@ def test_every_module_imports_without_jax():
     walked = r.stdout.splitlines()[0]
     for name in NEW_MODULES:
         assert f"'{name}'" in walked, name
+
+
+def test_astro_extensions_import_without_jax():
+    """`import asset_asrl_torch.Astro.Extensions` alone, in a fresh
+    interpreter, leaves jax out; the port's Astro and VectorFunctions
+    namespaces export every name the JAX package's do."""
+    code = ("import sys, asset_asrl_torch.Astro.Extensions as E; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m.startswith('jaxlib') "
+            "or m.startswith('asset_asrl_tpu')]; "
+            "print(bad, E.EPPRFrame, E.NBodyFrame); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    import importlib
+    import asset_asrl_torch as tast
+    for sub in ("Astro", "Astro.Extensions", "VectorFunctions"):
+        jmod = importlib.import_module("asset_asrl_tpu." + sub)
+        tmod = importlib.import_module("asset_asrl_torch." + sub)
+        names = [n for n in vars(jmod) if not n.startswith("_")]
+        missing = [n for n in names if not hasattr(tmod, n)]
+        assert not missing, (sub, missing)
+    for name in ("InterpTable1D", "InterpTable2D", "InterpTable3D",
+                 "InterpTable4D", "ScalarRootFinder", "RootFinder",
+                 "PyVectorFunction", "PyScalarFunction"):
+        assert hasattr(tast.VectorFunctions, name), name
 
 
 def test_chip_smoke_imports_without_jax():

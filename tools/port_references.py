@@ -14,6 +14,32 @@ segments (about 70 s) and formation flying at 256 segments a phase (two
 linked phases, about 80 s) -> `FUSED`, and the 512-scenario
 `solve_ensemble` about the MultiSpacecraft baseline (about 30 s) ->
 `MSC_512`.
+
+    JAX_PLATFORMS=cpu python tools/port_references.py --astro
+
+prints only the references of phases 17 and 18 instead (about 10 min):
+the table-driven climb at 50 segments -> `CLIMB_50`; the Kepler
+root-finder family on its first 4 rows (values, Jacobians, adjoint
+Hessians) -> `KEPLER_FAMILY_4`; Lambert on the 64 seeded lanes of the
+porkchop grid -> `PORKCHOP_64`; the Dionysus transfer at 150 segments
+(flag, iterations, final mass in kg) -> `DIONYSUS_150`.
+
+    JAX_PLATFORMS=cpu python tools/port_references.py --dionysus-16
+
+prints the Dionysus transfer at 16 segments that
+`tests/test_torch_astro_solve.py` holds the port to (about 1 min): flag,
+iterations, final mass in kg, objective, and the trajectory rows of
+nodes 0, 8, 16, 24 and 32 -> `DIONYSUS_16`.
+
+    JAX_PLATFORMS=cpu python tools/port_references.py --porkchop-arrivals
+
+runs the whole 512 x 512 porkchop grid through Lambert and 16 chained
+(and, apart, one) `propagate_kepler` steps in the JAX package and in the
+port on the CPU (about 1 min), and prints for each the lanes that do not
+land on their arrival state (1e-8), how many of those pass within 0.1 AU
+of the Sun, the lanes both packages miss, and the largest
+`conic_residuals` of the Lambert solutions (a witness that uses neither
+propagator nor Lambert solver) -> `PORKCHOP_ARRIVALS`.
 """
 
 import json
@@ -27,12 +53,16 @@ jax.config.update("jax_enable_x64", True)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 import asset_asrl_tpu as ast  # noqa: E402
 from asset_asrl_tpu.parallel import solve_ensemble  # noqa: E402
-from chip_smoke import (build_brachistochrone, build_cartpole,  # noqa: E402
-                        build_formation, build_multispacecraft)
+from chip_smoke import (DIONYSUS_MASS, build_brachistochrone,  # noqa: E402
+                        build_cartpole, build_climb, build_dionysus,
+                        build_formation, build_multispacecraft,
+                        conic_residuals, kepler_family, kepler_rows,
+                        porkchop, porkchop_lanes)
 
 
 def solved(phase, **knobs):
@@ -44,11 +74,81 @@ def solved(phase, **knobs):
     return [int(flag), opt.LastIterNum, repr(opt.LastObjVal)]
 
 
+def floats(a):
+    return [float(v) for v in np.asarray(a).ravel()]
+
+
+def astro(show):
+    show("CLIMB_50", solved(build_climb(ast, 50)))
+    f = kepler_family(ast)
+    x, lam = kepler_rows(4)
+
+    def all3(y, l):
+        ag = lambda z: jax.vjp(f.trace, z)[1](l)[0]  # noqa: E731
+        return f.trace(y), jax.jacfwd(f.trace)(y), jax.jacfwd(ag)(y)
+    out = jax.jit(jax.vmap(all3))(jnp.asarray(x), jnp.asarray(lam))
+    show("KEPLER_FAMILY_4", [floats(a) for a in out])
+    r1, r2, tof = porkchop()
+    k = porkchop_lanes()
+    v1, v2 = ast.Astro.lambert_izzo_batch(r1[k], r2[k], tof[k])
+    show("PORKCHOP_64", [floats(v1), floats(v2)])
+    ph = build_dionysus(ast, 150)
+    flag, it, _ = solved(ph)
+    show("DIONYSUS_150", [flag, it, float(np.asarray(ph.returnTraj())[-1][6]
+                                          * DIONYSUS_MASS)])
+
+
+def dionysus_16(show):
+    ph = build_dionysus(ast, 16)
+    flag, it, obj = solved(ph)
+    traj = np.asarray(ph.returnTraj())
+    show("DIONYSUS_16", [flag, it, float(traj[-1][6] * DIONYSUS_MASS),
+                         float(obj), [floats(traj[i]) for i in
+                                      (0, 8, 16, 24, 32)]])
+
+
+def porkchop_arrivals(show):
+    import asset_asrl_torch as tast
+    tast.config.use_device("cpu")
+    r1, r2, tof = porkchop()
+    out, missed = {}, {}
+    for name, pkg in (("jax", ast), ("port", tast)):
+        v1, v2 = (np.asarray(v) for v in
+                  pkg.Astro.lambert_izzo_batch(r1, r2, tof))
+        h = np.cross(r1, v1)
+        a = -0.5 / (0.5 * (v1 * v1).sum(1) - 1 / np.linalg.norm(r1, axis=1))
+        grazing = a * (1 - np.sqrt(np.maximum(0.0, 1 - (h * h).sum(1) / a))) \
+            < 0.1
+        row = {"conic_residual": float(conic_residuals(r1, v1, r2, v2,
+                                                       tof).max())}
+        for steps in (16, 1):
+            x = np.concatenate([r1, v1], axis=1)
+            for _ in range(steps):
+                x = np.asarray(pkg.Astro.propagate_kepler(x, tof / steps))
+            miss = ~((np.abs(x[:, :3] - r2).max(1) <= 1e-8)
+                     & (np.abs(x[:, 3:] - v2).max(1) <= 1e-8))
+            missed[name, steps] = miss
+            row[f"miss_{steps}"] = int(miss.sum())
+            row[f"miss_{steps}_grazing"] = int((miss & grazing).sum())
+        out[name] = row
+    for steps in (16, 1):
+        out[f"both_miss_{steps}"] = int((missed["jax", steps]
+                                         & missed["port", steps]).sum())
+    show("PORKCHOP_ARRIVALS", out)
+
+
 def main():
     full = "--all" in sys.argv[1:]
 
     def show(name, value):
         print(json.dumps({name: value}), flush=True)
+
+    if "--astro" in sys.argv[1:]:
+        return astro(show)
+    if "--dionysus-16" in sys.argv[1:]:
+        return dionysus_16(show)
+    if "--porkchop-arrivals" in sys.argv[1:]:
+        return porkchop_arrivals(show)
 
     show("FUSED Brachistochrone LGL3 24",
          solved(build_brachistochrone(ast, "LGL3", 24)))
