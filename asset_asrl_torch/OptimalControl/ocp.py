@@ -48,6 +48,8 @@ class OptimalControlProblem:
         self.optimizer = PSIOPT()
         self.device = config.DEVICE
         self.KKTBackend = "block"
+        self.KKTMesh = None
+        self.KKTAxis = "seg"
         self._link_params = np.zeros(0)
         self._link_specs = []
         self._nlp = None
@@ -191,11 +193,20 @@ class OptimalControlProblem:
         self._link_specs.append(("objective", func, self._pairs(args)))
         return len(self._link_specs) - 1
 
-    def setKKTBackend(self, backend):
-        """'block' (default) or 'dense' (see `Phase.setKKTBackend`)."""
+    def setKKTBackend(self, backend, mesh=None, axis="seg"):
+        """'block' (default), 'sharded' or 'dense' (see
+        `Phase.setKKTBackend`).  'sharded' lays the concatenated phase
+        chain over the mesh: the phases are consecutive spans of one
+        global node chain."""
         backend = str(backend)
-        if backend not in ("block", "dense"):
+        if backend not in ("block", "sharded", "dense"):
             raise ValueError(f"unknown KKT backend {backend!r}")
+        if backend == "sharded":
+            if mesh is None:
+                from ..distributed import chain_mesh
+                mesh = chain_mesh(axis)
+            self.KKTMesh = mesh
+            self.KKTAxis = axis
         self.KKTBackend = backend
         return self
 
@@ -203,6 +214,7 @@ class OptimalControlProblem:
     def transcribe(self, *_):
         key = (tuple(p._structure_key() for p in self.Phases),
                tuple(id(s) for s in self._link_specs), self.KKTBackend,
+               id(self.KKTMesh),
                self._link_params.size)
         if self._nlp is not None and key == self._ocp_struct_key:
             # structure unchanged: refresh the consts only (the shifted
@@ -240,7 +252,7 @@ class OptimalControlProblem:
         nlp.freeze()
         self._nlp = nlp
         kkt = None
-        if self.KKTBackend == "block":
+        if self.KKTBackend in ("block", "sharded"):
             # phases are consecutive spans of one global node chain
             nov = np.full(nvars, -1, np.int64)
             node_off = 0
@@ -251,6 +263,9 @@ class OptimalControlProblem:
             from ..Solvers.kkt_block import BlockKKT
             try:
                 kkt = BlockKKT(nlp, nov, x0=self._make_input())
+                if self.KKTBackend == "sharded":
+                    from ..Solvers.kkt_sharded import ShardedBlockKKT
+                    kkt = ShardedBlockKKT(kkt, self.KKTMesh, self.KKTAxis)
             except ValueError as e:
                 # a structure the block backend cannot hold: PSIOPT builds
                 # the dense backend

@@ -108,6 +108,8 @@ class Phase:
         self.SPV = 0
         self._static_params = np.zeros(0)
         self.KKTBackend = "block"
+        self.KKTMesh = None
+        self.KKTAxis = "seg"
         self.optimizer = PSIOPT()
         self._specs: list[_Spec] = []
         self.AdaptiveMesh = False
@@ -372,12 +374,23 @@ class Phase:
                 self.ode, 0.1 * span / max(self.numSegs, 1))
         return self._integrator
 
-    def setKKTBackend(self, backend):
-        """'block' (default): block-tridiagonal BCR; 'dense': the dense
-        eigendecomposition backend (small problems, debugging)."""
+    def setKKTBackend(self, backend, mesh=None, axis="seg"):
+        """'block' (default): block-tridiagonal BCR; 'sharded': the same
+        KKT factored segment-axis sharded over `mesh`
+        (`Solvers.kkt_sharded.ShardedBlockKKT`; default
+        `distributed.chain_mesh(axis)`, one shard a rank); 'dense': the
+        dense eigendecomposition backend (small problems, debugging).  A
+        new mesh, or a new segment count, re-pads and re-shards at the
+        next transcription."""
         backend = str(backend)
-        if backend not in ("block", "dense"):
+        if backend not in ("block", "sharded", "dense"):
             raise ValueError(f"unknown KKT backend {backend!r}")
+        if backend == "sharded":
+            if mesh is None:
+                from ..distributed import chain_mesh
+                mesh = chain_mesh(axis)
+            self.KKTMesh = mesh
+            self.KKTAxis = axis
         self.KKTBackend = backend
         self._need_transcribe = True
         return self
@@ -1158,7 +1171,7 @@ class Phase:
     def _structure_key(self):
         return (self._numsegs, self.TranscriptionMode, self.ControlMode,
                 self.AutoScaling, self.SPV, self.PV, self.KKTBackend,
-                tuple(id(s) for s in self._specs))
+                id(self.KKTMesh), tuple(id(s) for s in self._specs))
 
     def _refresh_consts(self, nlp=None):
         """Re-transcription without rebuilding: with the structure
@@ -1201,11 +1214,14 @@ class Phase:
         nlp.freeze()
         self._nlp = nlp
         kkt = None
-        if self.KKTBackend == "block":
+        if self.KKTBackend in ("block", "sharded"):
             from ..Solvers.kkt_block import BlockKKT
             try:
                 kkt = BlockKKT(nlp, self.node_of_var(),
                                x0=self.makeSolverInput())
+                if self.KKTBackend == "sharded":
+                    from ..Solvers.kkt_sharded import ShardedBlockKKT
+                    kkt = ShardedBlockKKT(kkt, self.KKTMesh, self.KKTAxis)
             except ValueError as e:
                 # a structure the block backend cannot hold (e.g. nonlinear
                 # front-to-back coupling): PSIOPT builds the dense backend

@@ -1,6 +1,7 @@
 """asset_asrl_torch.Solvers: NLP assembly + the PSIOPT interior-point
-solver on the block-tridiagonal KKT (or the dense KKT when a problem's
-structure does not fit it), generic optimization problems and the Jet
+solver on the block-tridiagonal KKT (sharded over a mesh by
+`kkt_sharded`, or the dense KKT when a problem's structure does not fit
+it), generic optimization problems and the Jet
 thread-pool runner."""
 
 from .nlp import NonLinearProgram, IndexedFunction

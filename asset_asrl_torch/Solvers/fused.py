@@ -463,10 +463,19 @@ def build_fused_ensemble(kkt, opts, mode, mesh=None, axis="scenario"):
     PSIOPT algorithm (ladder, barrier update, line search, convergence
     tiers) and equals its own `phase.optimize()`; mu0 and consts are
     shared.  Returns fn(xB, sB, lamEB, lamIB, mu0, consts) as
-    `build_fused_alg` does.  A device mesh (sharding the scenario axis
-    over cards) is not ported yet (ROADMAP queue 1, item 15)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_ensemble over a device mesh waits for the sharded "
-            "backend and distribution (ROADMAP queue 1, item 15)")
-    return build_fused_alg(kkt, opts, mode)
+    `build_fused_alg` does.  With a `distributed.Mesh`, the scenario axis
+    is split over the mesh's `axis` (`Mesh.lanes`): each rank solves its
+    lanes, and every output is gathered, so every rank returns the whole
+    batch."""
+    run = build_fused_alg(kkt, opts, mode)
+    if mesh is None:
+        return run
+
+    def sharded(xB, sB, lamEB, lamIB, mu0, consts):
+        mine = mesh.lanes(xB.shape[0], axis)
+        out = run(xB[mine], sB[mine], lamEB[mine], lamIB[mine], mu0,
+                  consts)
+        return tuple(mesh.all_gather(o, axis) for o in out)
+
+    sharded.stats = run.stats
+    return sharded

@@ -389,7 +389,7 @@ def _inv_sym(D):
     return Dinv.reshape(D.shape), nbad.view(lead).sum(-1)
 
 
-def bcr_factor(diag, lower, Bmat, C):
+def bcr_factor(diag, lower, Bmat, C, invert_border=True):
     """Compacted block cyclic reduction of [T, B; B^T, C] for a batch of
     B problems of one structure (a leading lane axis; one problem is
     B = 1).
@@ -399,7 +399,10 @@ def bcr_factor(diag, lower, Bmat, C):
     halves the chain: the odd blocks of every lane are inverted as one
     batch (one K1 launch) and eliminated with two batched products.
     Returns (fac, neigs): the factor and the count of negative eigenvalues
-    of each lane's matrix (B,)."""
+    of each lane's matrix (B,).  invert_border=False (substructuring,
+    `kkt_sharded`) stops at the border's Schur complement: the factor
+    holds `C_schur` (B,b,b) instead of `Cinv`, and neigs counts the
+    chain's pivots only."""
     Bn, K, W, _ = diag.shape
     b = C.shape[-1]
     neigs = torch.zeros((Bn,), dtype=torch.int64, device=diag.device)
@@ -466,6 +469,9 @@ def bcr_factor(diag, lower, Bmat, C):
     D0inv = Dinv0[:, 0]
     B0 = B[:, 0]
     C_schur = C - B0.transpose(-1, -2) @ D0inv @ B0
+    if not invert_border:
+        return dict(levels=levels, D0inv=D0inv, B0=B0,
+                    C_schur=C_schur), neigs
     if b > 0:
         Cinv1, negC = _inv_sym(C_schur[:, None])
         neigs = neigs + negC
@@ -919,10 +925,10 @@ class BlockKKT:
         return diag, lower, B, C
 
     # -------------------------------------------------------------- factor
-    def _factor_blocks_impl(self, blocks, delta, gammaE):
-        """Regularize + factor pre-assembled blocks (B, ...).  delta: a
-        number, or one per lane (B,).  Returns the factor and the
-        negative-eigenvalue count of each lane (B,)."""
+    def _regularize(self, blocks, delta, gammaE):
+        """Pre-assembled blocks (B, ...) with +delta on the primal slots,
+        -gammaE on the equality-multiplier slots and 1 on the unused
+        padded slots.  delta: a number, or one per lane (B,)."""
         diag, lower, B, C = blocks
         if torch.is_tensor(delta) and delta.dim() == 1:
             dd, dc = delta[:, None, None, None], delta[:, None, None]
@@ -931,7 +937,12 @@ class BlockKKT:
         diag = diag + (self._d_pos * dd - self._d_neg * gammaE) \
             + self._d_fix
         C = C + (self._c_pos * dc - self._c_neg * gammaE)
-        return bcr_factor(diag, lower, B, C)
+        return diag, lower, B, C
+
+    def _factor_blocks_impl(self, blocks, delta, gammaE):
+        """Regularize + factor pre-assembled blocks (B, ...).  Returns the
+        factor and the negative-eigenvalue count of each lane (B,)."""
+        return bcr_factor(*self._regularize(blocks, delta, gammaE))
 
     def _factor_impl(self, x, lamE, lamI, sigma, sig_tilde, delta, gammaE,
                      consts):
@@ -960,10 +971,14 @@ class BlockKKT:
         full = torch.zeros((Bn, K * W + b), dtype=config.DTYPE,
                            device=self.device)
         full[:, self._perm] = torch.cat([rhs_x, rhs_E], 1)
-        y, z = bcr_solve(fac, full[:, :K * W].reshape(Bn, K, W),
-                         full[:, K * W:])
+        y, z = self._block_solve(fac, full[:, :K * W].reshape(Bn, K, W),
+                                 full[:, K * W:])
         sol = torch.cat([y.reshape(Bn, -1), z], 1)[:, self._perm]
         return sol[:, :bs.n], sol[:, bs.n:]
+
+    def _block_solve(self, fac, rhs_blocks, rhs_border):
+        """(y (B,K,W), z (B,b)) of the factored block system."""
+        return bcr_solve(fac, rhs_blocks, rhs_border)
 
     def solve(self, fac, rhs_x, rhs_E):
         """One problem's solve (rhs without the lane axis)."""

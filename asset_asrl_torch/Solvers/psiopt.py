@@ -7,8 +7,8 @@ the convergence tiers (CONVERGED / ACCEPTABLE / NOTCONVERGED / DIVERGING).
 
 The KKT system is reduced by analytic slack elimination to the symmetric
 quasi-definite form [[H+dI, JE^T, JI^T], [JE, -gI, 0], [JI, 0, -(1/Sig+g)]]
-and factored by the block-tridiagonal backend (`kkt_block.BlockKKT`), or by
-the dense backend (`kkt_dense.DenseKKT`) when the problem's structure does
+and factored by the block-tridiagonal backend (`kkt_block.BlockKKT`, or
+`kkt_sharded.ShardedBlockKKT` over a mesh), or by the dense backend (`kkt_dense.DenseKKT`) when the problem's structure does
 not fit the block one.
 
 Two loops, as in the JAX package: with `UseFused` (the default) a block
@@ -32,9 +32,14 @@ from .. import config
 from .fused import INFO_FIELDS, _maxstep, _sigma_diag, _slack_reset, \
     build_fused_alg, init_multipliers
 from .kkt_block import BlockKKT
+from .kkt_sharded import ShardedBlockKKT
 from .nlp import NonLinearProgram
 
 __all__ = ["PSIOPT", "ConvergenceFlags"]
+
+# the backends of the block structure: the fused loop, the least-squares
+# multiplier start, the stage timings and storespmat run on either
+BLOCK_BACKENDS = (BlockKKT, ShardedBlockKKT)
 
 
 class ConvergenceFlags:
@@ -264,7 +269,7 @@ class PSIOPT:
                                             self.initMu)
         nlp, kkt, dev = self.nlp, self.kkt, self.nlp.device
         mE, mI = nlp.numEq, nlp.numIq
-        if mE > 0 and isinstance(kkt, BlockKKT):
+        if mE > 0 and isinstance(kkt, BLOCK_BACKENDS):
             lamE0 = init_multipliers(kkt, x[None], self.ObjScale,
                                      self.gammaE, nlp.consts_dev())[0]
             if bool(torch.isfinite(lamE0).all()):
@@ -332,7 +337,7 @@ class PSIOPT:
                     s = torch.clamp(config.tensor(self.LastSlacks, dev),
                                     min=self.BoundPush * 1e-3)
         alg = self._alg_fused if self.UseFused \
-            and isinstance(self.kkt, BlockKKT) else self._alg_impl
+            and isinstance(self.kkt, BLOCK_BACKENDS) else self._alg_impl
         flag = ConvergenceFlags.NOTCONVERGED
         for mode in schedule:
             if mode == "SOE":
@@ -429,7 +434,7 @@ class PSIOPT:
         factor, solve, line-search value pass): a warm call, then the mean
         of 3, each ending in a device synchronize.  Returns the dict (also
         stored in LastStageTimes); None for a dense KKT."""
-        if not isinstance(self.kkt, BlockKKT):
+        if not isinstance(self.kkt, BLOCK_BACKENDS):
             return None
         kkt, nlp = self.kkt, self.nlp
         consts = nlp.consts_dev()
@@ -464,7 +469,7 @@ class PSIOPT:
     def _store_spmat(self, x, s, lamE, lamI, Mu, sigma):
         """The KKT blocks (diag, lower, B, C) at the given iterate, as
         numpy arrays in LastKKTBlocks (block KKT only)."""
-        if not isinstance(self.kkt, BlockKKT):
+        if not isinstance(self.kkt, BLOCK_BACKENDS):
             return
         _, _, _, _, famvals = self.kkt._eval_core(
             x[None], lamE[None], lamI[None], float(sigma),

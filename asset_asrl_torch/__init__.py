@@ -16,6 +16,21 @@ from . import Solvers
 from . import OptimalControl
 from . import Integrators
 from . import Astro
+from . import Utils
 from . import parallel  # noqa: F401
+from . import distributed  # noqa: F401 -- process groups + meshes
 
 __version__ = "0.2.0"
+
+
+def SoftwareInfo():
+    """Start-up banner: the version, torch's and the devices."""
+    import torch
+    if torch.cuda.is_available():
+        devs = ", ".join(f"cuda:{i} {torch.cuda.get_device_name(i)}"
+                         for i in range(torch.cuda.device_count()))
+    else:
+        devs = "cpu"
+    print(f"asset_asrl_torch {__version__}: the PyTorch/CUDA port of ASSET "
+          f"(torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"devices: {devs}; problems on {config.DEVICE})")

@@ -11,9 +11,9 @@ iteration (slack reset, barrier update, condensed block-KKT factor + solve,
 fraction-to-boundary, no merit retries); `make_batched_step` is the same
 function over a batch.  `solve_ensemble` runs the complete fused PSIOPT
 algorithm (`Solvers/fused.py`) in every lane, each equal to its own
-`phase.optimize()`.  Sharding the scenario axis over several cards (a
-device `mesh`) waits for the distribution work (ROADMAP queue 1, item 15)
-and raises `NotImplementedError`.
+`phase.optimize()`.  With a `distributed.Mesh`, both split the scenario
+axis over the mesh's `axis`: each rank runs its lanes (`Mesh.lanes`) and
+the results are gathered, so every rank returns the whole batch.
 """
 
 from __future__ import annotations
@@ -29,19 +29,12 @@ __all__ = ["make_iteration_step", "init_state", "make_batched_step",
            "solve_ensemble"]
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding the scenario axis over a device mesh waits for the "
-            "sharded backend and distribution (ROADMAP queue 1, item 15)")
-
-
 def _block_kkt(phase):
     if phase._need_transcribe or phase._nlp is None:
         phase.transcribe()
-    from .Solvers.kkt_block import BlockKKT
+    from .Solvers.psiopt import BLOCK_BACKENDS
     kkt = phase.optimizer.kkt
-    if not isinstance(kkt, BlockKKT):
+    if not isinstance(kkt, BLOCK_BACKENDS):
         raise ValueError("a batched solve needs the block KKT backend")
     return kkt
 
@@ -133,28 +126,38 @@ def init_state(phase, mu0=1.0e-3, boundpush=1.0e-3):
 
 def make_batched_step(phase, mesh=None, axis="scenario"):
     """The iteration step over a leading scenario axis: state (x (B, n),
-    ..., mu (B,)).  A device mesh is not ported yet."""
-    _no_mesh(mesh)
-    return _lane_step(phase)
+    ..., mu (B,)).  With a mesh, each rank steps its lanes of the whole
+    state and the new state and infeasibilities are gathered."""
+    step = _lane_step(phase)
+    if mesh is None:
+        return step
+
+    def sharded(state):
+        mine = mesh.lanes(state[0].shape[0], axis)
+        out, info = step(tuple(v[mine] for v in state))
+        return (tuple(mesh.all_gather(v, axis) for v in out),
+                mesh.all_gather(info, axis))
+    return sharded
 
 
 def solve_ensemble(phase, perturb_states=None, mesh=None, mode="OPT",
                    x0s=None):
     """B scenarios sharing the phase's structure, each run through the
     complete fused PSIOPT algorithm in one batched program; every lane
-    equals its own `phase.optimizer.optimize(x0)`.
+    equals its own `phase.optimizer.optimize(x0)`.  mesh: a
+    `distributed.Mesh` to split the scenarios over (B divisible by the
+    size of its `axis` "scenario"); every rank returns the whole batch.
 
     perturb_states: B perturbation vectors of the solver input, OR x0s: B
     full solver inputs.  Returns a dict of numpy arrays: "x" (B, n),
     "flags" (B,), "iters" (B,), "objs" (B,), "infos" (B, MaxIters, 9),
     "lamE", "lamI", "s".  The last call's outer iterations, host reads and
     factorizations are in `phase.optimizer.LastFusedStats`."""
-    _no_mesh(mesh)
     kkt = _block_kkt(phase)
     opt = phase.optimizer
     nlp = phase._nlp
     dev = nlp.device
-    fn = build_fused_ensemble(kkt, opt._opts_snapshot(), mode)
+    fn = build_fused_ensemble(kkt, opt._opts_snapshot(), mode, mesh=mesh)
 
     if x0s is None:
         base = np.asarray(phase.makeSolverInput())

@@ -78,7 +78,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
    equations of motion over 4096 rows against the CPU;
 19. the Solvers tail against its CPU results: Rosenbrock through
    `OptimizationProblem` under three line-search modes, a phase on the
-   dense KKT backend, and `Jet.map` over three phases.
+   dense KKT backend, and `Jet.map` over three phases;
+20. distribution on a one-rank NCCL process group: the 10,001-node
+   CartPole's default solve on the block backend and sharded (flat over 8
+   shards, hierarchical over a (2, 4) mesh), the neigs and residuals of
+   one factor + solve of each at the converged blocks, formation flying
+   at 256 segments a phase sharded (the wide reduced border), a 16-lane
+   ensemble over a scenario mesh against no mesh, `Utils.Profiler`
+   around one sharded factor, and K1 timed at the sharded launch shapes.
 
 Phases 5 to 14 hold the port to the JAX package's host loop, so their
 problems run the port's host loop too (`UseFused = False`); phases 15 and
@@ -87,7 +94,7 @@ just before it drives its problem and reads them just after.  The line
 before the last two is a JSON object describing every kernel of the main
 path (narrow K1 launches from phase 10, wide K1 launches from the
 256-segment run of phase 8, and under `launches_elsewhere` those of the
-solves of phases 12 to 19); phases 17 to 19 print each run's time, peak
+solves of phases 12 to 20); phases 17 to 20 print each run's time, peak
 device memory and K1 launches; then the card's name and power limit; the
 last line is the JSON device record.
 """
@@ -96,6 +103,7 @@ import contextlib
 import gc
 import json
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -985,6 +993,28 @@ K1_MAIN = {(5002, 25): ("gj_inverse", "Delta III, 10,004 nodes"),
            (1, 261): ("gj_inverse_wide", "formation flying, 256 segments")}
 
 
+def k1_time(ck, D, err):
+    """K1's device time on D (graph replay), a wrapper call's time, the
+    bound, the plain version's and `torch.linalg.inv_ex`'s times; err is
+    the largest deviation from the plain version, measured by the
+    caller."""
+    K, W = D.shape[:2]
+    bound, by = k1_bound(K, W, D.dtype)
+    m = dict(max_abs_err=err,
+             ms=graph_ms(lambda: ck.gj_inverse_inertia(D)),
+             call_ms=cuda_ms(lambda: ck.gj_inverse_inertia(D)),
+             plain_ms=cuda_ms(lambda: ck.gj_inverse_ref(D), reps=5),
+             bound_ms=bound, bound_by=by,
+             library_ms=cuda_ms(lambda: torch.linalg.inv_ex(D)))
+    print(f"  timing ({K},{W},{W}) f64: kernel {m['ms']:.5f} ms "
+          f"on the device (graph replay), {m['call_ms']:.5f} ms "
+          f"a wrapper call; bound {bound:.6f} ms by {by} "
+          f"({100 * bound / m['ms']:.2f}% of the kernel's time); plain "
+          f"{m['plain_ms']:.4f} ms; torch.linalg.inv_ex "
+          f"{m['library_ms']:.4f} ms")
+    return m
+
+
 def phase_kernel(ck):
     """Phase 3: K1 (narrow kernels up to W = 64, the blocked wide kernel
     above) against its plain versions, f64 and f32.  Tolerances: 1e-12
@@ -1030,20 +1060,7 @@ def phase_kernel(ck):
                   f"K1 bad-pivot count off at ({K},{W}) {dtype}")
             check(same, f"K1 not bitwise repeatable at ({K},{W}) {dtype}")
             if dtype == torch.float64 and (K, W) in K1_TIMED:
-                bound, by = k1_bound(K, W, dtype)
-                m = out[(K, W)] = dict(
-                    max_abs_err=float((X - Xr).abs().max()),
-                    ms=graph_ms(lambda: ck.gj_inverse_inertia(D)),
-                    call_ms=cuda_ms(lambda: ck.gj_inverse_inertia(D)),
-                    plain_ms=cuda_ms(lambda: ck.gj_inverse_ref(D), reps=5),
-                    bound_ms=bound, bound_by=by,
-                    library_ms=cuda_ms(lambda: torch.linalg.inv_ex(D)))
-                print(f"  timing ({K},{W},{W}) f64: kernel {m['ms']:.5f} ms "
-                      f"on the device (graph replay), {m['call_ms']:.5f} ms "
-                      f"a wrapper call; bound {bound:.6f} ms by {by} "
-                      f"({100 * bound / m['ms']:.2f}% of the kernel's time); plain "
-                      f"{m['plain_ms']:.4f} ms; torch.linalg.inv_ex "
-                      f"{m['library_ms']:.4f} ms")
+                out[(K, W)] = k1_time(ck, D, float((X - Xr).abs().max()))
 
         # a block with a zero pivot and a NaN pivot among clean ones
         for W in (24, 40, 70, 261):
@@ -2167,6 +2184,233 @@ def phase_solvers_tail(ast, ck):
     return out
 
 
+def free_port():
+    """A free TCP port on 127.0.0.1 for the process group's rendezvous."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def block_matvec(blocks, y, z):
+    """[T, B; B^T, C] [y; z] of one problem's blocks (diag, lower, B, C):
+    y (K, W), z (b,)."""
+    diag, lower, B, C = blocks
+    Ay = (diag @ y[..., None])[..., 0] + (B @ z)
+    Ay[1:] += (lower[:-1] @ y[:-1, :, None])[..., 0]
+    Ay[:-1] += (lower[:-1].transpose(-1, -2) @ y[1:, :, None])[..., 0]
+    return Ay, (B.transpose(-1, -2) @ y[..., None])[..., 0].sum(0) + C @ z
+
+
+def shape_counts(shapes):
+    counts = {}
+    for k in shapes:
+        counts[k] = counts.get(k, 0) + 1
+    return sorted(counts.items(), key=lambda kv: (-kv[0][0], kv[0][1]))
+
+
+def phase_distribution(ast, ck, kb, nsegs=5000, formation=256, ens_segs=128,
+                       lanes=16):
+    """Phase 20: distribution.  A one-rank process group (NCCL on the
+    card); the 10,001-node CartPole's default solve on the block backend,
+    then sharded flat over `chain_mesh(shards=8)` and hierarchically over
+    a (2, 4) ("host", "chip") mesh on the one rank, then the three again
+    (host-bound times spread between runs).  Each sharded solve is held to
+    the first block solve: flag 0 and equal, objective to 1e-9 relative,
+    iterations equal or within 1.  At the block solve's converged blocks
+    (`storespmat`) one factor + solve through each backend: neigs equal,
+    each sharded residual at most 10x the block backend's own.  Formation
+    flying at 256 segments a phase through `ocp.setKKTBackend("sharded")`
+    (D = 8; the reduced border (1, 261, 261) takes the wide K1) against
+    the block backend: flag and objective to 1e-8.  A 16-lane CartPole
+    ensemble at 128 segments over a ("scenario",) mesh of 8 shards against
+    no mesh: flags and iterations equal, x to 1e-12.  `Utils.Profiler`
+    around one sharded factor: its trace names K1's narrow kernel.
+    Returns (K1 launches of each run, the K1 shapes of the flat sharded
+    CartPole solve)."""
+    import tempfile
+    from asset_asrl_torch import distributed as dst
+    from asset_asrl_torch.parallel import solve_ensemble
+    dist = torch.distributed
+    cuda = ast.config.DEVICE.type == "cuda"
+    dst.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    backend = dist.get_backend()
+    print(f"process group: backend {backend}, world {dist.get_world_size()}"
+          f", rank {dist.get_rank()}")
+    check(backend == ("nccl" if cuda else "gloo"),
+          f"process group backend {backend}")
+    out = {}
+
+    def solve(name, build, mesh):
+        """One default solve, K1 shapes and collectives recorded."""
+        reset_peak_memory()
+        held = torch.cuda.memory_allocated() if cuda else 0
+        prob = build()
+        opt = prob.optimizer
+        opt.set_PrintLevel(2)
+        opt.storespmat = True
+        if mesh is not None:
+            prob.setKKTBackend("sharded", mesh=mesh)
+        prob.transcribe()
+        calls = dict(mesh.calls) if mesh is not None else None
+        with k1_log(kb) as shapes:
+            flag, n1, nw, secs = counted(ck, prob.optimize)
+        peak = torch.cuda.max_memory_allocated() - held if cuda else 0
+        it = opt.LastIterNum
+        coll = "" if mesh is None else ", collectives " + ", ".join(
+            f"{k} {mesh.calls[k] - calls[k]}" for k in calls)
+        print(f"{name}: flag {flag} iters {it} obj {opt.LastObjVal:.16f}, "
+              f"{secs:.3f} s, {it / secs:.3f} iterations/s, peak device "
+              f"memory {peak / 2**20:.1f} MiB above the problems held, "
+              f"K1 launches {n1} narrow / {nw} wide{coll}")
+        print("  K1 launch shapes (blocks, width): count " + ", ".join(
+            f"{k}: {v}" for k, v in shape_counts(shapes)))
+        if mesh is not None:
+            check(min(mesh.calls[k] - calls[k] for k in calls) > 0,
+                  f"{name}: no collective went through the group")
+        out["phase 20, " + name] = (n1, nw)
+        return prob, flag, it, opt.LastObjVal, secs, shapes
+
+    flat, hier = dst.chain_mesh(shards=8), dst.Mesh((2, 4), ("host", "chip"))
+    meshes = [("block", None), ("flat D=8", flat),
+              ("hierarchical (2, 4)", hier), ("block again", None),
+              ("flat D=8 again", flat), ("hierarchical (2, 4) again", hier)]
+    runs = {}
+    for label, mesh in meshes:
+        runs[label] = solve(
+            f"CartPole {nsegs} segs, {label}",
+            lambda: build_cartpole(ast, nsegs), mesh)
+        ph = runs[label][0]
+        opt = ph.optimizer
+        kkt = opt.kkt
+        check(isinstance(kkt, kb.BlockKKT) == (mesh is None),
+              f"{label}: backend {type(kkt).__name__}")
+        if mesh is not None:
+            check(kkt.hier == label.startswith("hier") and kkt.D == 8,
+                  f"{label}: sharding {kkt.hier} {kkt.D}")
+        state = [ast.config.tensor(a) for a in (
+            ph.makeSolverInput(), opt.LastSlacks, opt.LastEqLmults,
+            opt.LastIqLmults)]
+        st = opt.measure_stage_times(*state, opt.initMu, opt.ObjScale)
+        print("  stage times at the solution (ms): " + ", ".join(
+            f"{k} {1e3 * v:.3f}" for k, v in st.items()))
+    _, bflag, bit, bobj, _, _ = runs["block"]
+    best = min(runs["block"][4], runs["block again"][4])
+    for label in ("flat D=8", "hierarchical (2, 4)"):
+        for again in ("", " again"):
+            _, flag, it, obj, secs, _ = runs[label + again]
+            print(f"  {label + again} against the block solve: objective "
+                  f"rel {abs(obj - bobj) / abs(bobj):.3e}, iterations {it} "
+                  f"vs {bit}, time {secs / best:.3f}x the faster block "
+                  f"solve")
+            check(flag == bflag == 0 and abs(it - bit) <= 1
+                  and abs(obj - bobj) <= 1e-9 * abs(bobj),
+                  f"sharded CartPole {label} differs from the block solve")
+
+    # one factor + solve of the block solve's converged blocks each
+    opt = runs["block"][0].optimizer
+    blocks = [ast.config.tensor(a)[None] for a in opt.LastKKTBlocks]
+    rng = np.random.default_rng(20)
+    K, W = blocks[0].shape[1:3]
+    b = blocks[3].shape[-1]
+    r = ast.config.tensor(rng.normal(size=(1, K, W)))
+    rb = ast.config.tensor(rng.normal(size=(1, b)))
+    kkt_checks = {}
+    for label in ("block", "flat D=8", "hierarchical (2, 4)"):
+        kkt = runs[label][0].optimizer.kkt
+        fac, neigs = kkt._factor_blocks_impl(blocks, opt.deltaH, opt.gammaE)
+        y, z = kkt._block_solve(fac, r, rb)
+        reg = kkt._base._regularize(blocks, opt.deltaH, opt.gammaE) \
+            if label != "block" else kkt._regularize(blocks, opt.deltaH,
+                                                     opt.gammaE)
+        Ay, Az = block_matvec([t[0] for t in reg], y[0], z[0])
+        res = float(torch.cat([(Ay - r[0]).reshape(-1), Az - rb[0]]).norm()
+                    / torch.cat([r[0].reshape(-1), rb[0]]).norm())
+        kkt_checks[label] = (int(neigs[0]), res)
+        print(f"  converged blocks, {label}: neigs {int(neigs[0])}, "
+              f"residual |Ax - r|/|r| {res:.3e}")
+    nb, rblock = kkt_checks["block"]
+    check(all(n == nb and res <= 10 * max(rblock, 1e-16)
+              for n, res in kkt_checks.values()),
+          "sharded factor at the converged blocks: neigs or residual off")
+
+    # Utils.Profiler around one sharded factor
+    kkt = runs["flat D=8"][0].optimizer.kkt
+    with tempfile.TemporaryDirectory() as tmp:
+        with ast.Utils.Profiler(tmp) as prof:
+            kkt._factor_blocks_impl(blocks, opt.deltaH, opt.gammaE)
+        with open(prof.trace_path) as f:
+            trace = f.read()
+    names = sorted(set(re.findall(r"gj_(?:warp|pair)_kernel", trace)))
+    print(f"  Utils.Profiler around one sharded factor: {prof.elapsed:.4f} "
+          f"s, a {len(trace)}-byte trace naming {names}")
+    check(not cuda or names, "the profiler trace does not name K1")
+    flat_shapes = runs["flat D=8"][5]
+    del runs, blocks, kkt, prof
+
+    # formation flying, the wide reduced border
+    res = {}
+    for label, mesh in (("block", None),
+                        ("sharded D=8", dst.chain_mesh(shards=8))):
+        prob, flag, it, obj, secs, _ = solve(
+            f"formation flying {formation} segs, {label}",
+            lambda: build_formation(ast, formation)[0], mesh)
+        res[label] = (flag, obj, prob.optimizer.kkt.bs.b)
+    (f1, o1, b1), (f2, o2, _) = res["block"], res["sharded D=8"]
+    print(f"  sharded against block: objective rel "
+          f"{abs(o2 - o1) / abs(o1):.3e} (border b {b1})")
+    check(f1 == f2 == 0 and abs(o2 - o1) <= 1e-8 * abs(o1),
+          "sharded formation flying differs from the block solve")
+
+    # the ensemble over a scenario mesh
+    ph = build_cartpole(ast, ens_segs)
+    ph.optimizer.set_PrintLevel(2)
+    ph.transcribe()
+    base = ph.makeSolverInput()
+    rng = np.random.default_rng(3)
+    perts = [rng.normal(size=base.shape) * 1e-3 for _ in range(lanes)]
+    ens = {}
+    mesh = dst.chain_mesh(axis="scenario", shards=8)
+    for label, m in (("no mesh", None), ("scenario mesh of 8", mesh)):
+        calls = dict(mesh.calls)
+        e, n1, nw, secs = counted(
+            ck, lambda: solve_ensemble(ph, perturb_states=perts, mesh=m))
+        ens[label] = e
+        print(f"CartPole {ens_segs} segs ensemble, {lanes} lanes, {label}: "
+              f"flags {np.bincount(e['flags'], minlength=4).tolist()}, "
+              f"iterations {e['iters'].min()}..{e['iters'].max()}, "
+              f"{secs:.3f} s, K1 launches {n1}, all_gather calls "
+              f"{mesh.calls['all_gather'] - calls['all_gather']}")
+        out[f"phase 20, CartPole ensemble {lanes} lanes, {label}"] = (n1, nw)
+    e0, e1 = ens["no mesh"], ens["scenario mesh of 8"]
+    dev = float(np.abs(e0["x"] - e1["x"]).max())
+    print(f"  meshed against unmeshed: x within {dev:.3e}")
+    check(np.array_equal(e0["flags"], e1["flags"])
+          and np.array_equal(e0["iters"], e1["iters"]) and dev <= 1e-12
+          and mesh.calls["all_gather"] > 0,
+          "the ensemble over a mesh differs from the unmeshed one")
+    dist.destroy_process_group()
+    return out, flat_shapes
+
+
+def time_sharded_k1(ck, shapes):
+    """K1 against its plain version (1e-12) and timed at the sharded
+    CartPole's launch shapes: the three largest (the first local levels
+    of the 8 shards in one launch) and the reduced chain's first level
+    (4 blocks for 8 shards)."""
+    distinct = sorted(set(shapes), reverse=True)
+    pick = distinct[:3] + [k for k in distinct if k[0] == 4]
+    for i, (K, W) in enumerate(dict.fromkeys(pick)):
+        D = quasi_definite_blocks(K, W, seed=300 + i, dtype=torch.float64)
+        X = ck.gj_inverse_inertia(D)[0]
+        Xr = plain_inertia(ck, D)[0]
+        print(f"sharded-path K1 ({K},{W},{W}) f64: inverse rel "
+              f"{rel(X, Xr):.3e}")
+        check(rel(X, Xr) <= 1e-12, f"K1 off at the sharded shape {K, W}")
+        k1_time(ck, D, float((X - Xr).abs().max()))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2210,9 +2454,14 @@ def main():
         t0 = time.perf_counter()
         adaptive.update(new_phase(ast, ck))
         print(f"{new_phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launched, sharded_shapes = phase_distribution(ast, ck, kb)
+    adaptive.update(launched)
+    time_sharded_k1(ck, sharded_shapes)
+    print(f"phase_distribution: {time.perf_counter() - t0:.1f} s")
 
     launches = {"gj_inverse": narrow, "gj_inverse_wide": wide}
-    # the launches of the solves of phases 12 to 19
+    # the launches of the solves of phases 12 to 20
     more = {"gj_inverse": {k: n for k, (n, _) in adaptive.items()},
             "gj_inverse_wide": {k: n for k, (_, n) in adaptive.items()}}
     source = {"gj_inverse": "asset_asrl_torch/csrc/gj_inverse.cu",

@@ -58,7 +58,10 @@ NEW_MODULES = ["asset_asrl_torch.Integrators", "asset_asrl_torch.Integrators.rk"
                "asset_asrl_torch.Astro.AstroConstraints",
                "asset_asrl_torch.Astro.Extensions.EPPRFrame",
                "asset_asrl_torch.Astro.Extensions.NBodyFrame",
-               "asset_asrl_torch.Astro.Extensions.frame_kinematics"]
+               "asset_asrl_torch.Astro.Extensions.frame_kinematics",
+               "asset_asrl_torch.Utils", "asset_asrl_torch.distributed",
+               "asset_asrl_torch.Solvers.kkt_sharded",
+               "asset_asrl_torch.tools.mp_worker"]
 
 
 def test_every_module_imports_without_jax():

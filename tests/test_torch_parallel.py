@@ -188,13 +188,21 @@ def test_converged_lane_is_frozen():
 
 
 def test_mesh_is_not_ignored():
-    """Sharding over a device mesh is not ported: asking for it raises."""
+    """A mesh splits the scenario axis: a batch that does not split over
+    its axis, or an axis the mesh lacks, raises instead of running
+    unsharded."""
+    from asset_asrl_torch.distributed import chain_mesh
     phase = double_integrator(tast, 4)
     base = phase.makeSolverInput()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tpar.solve_ensemble(phase, perturb_states=[0 * base], mesh="mesh")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tpar.make_batched_step(phase, mesh="mesh")
+    mesh = chain_mesh(axis="scenario", shards=2)
+    with pytest.raises(ValueError, match="do not split"):
+        tpar.solve_ensemble(phase, perturb_states=[0 * base] * 3, mesh=mesh)
+    state = tpar.init_state(phase)
+    batch = tuple(torch.stack([v] * 3) for v in state)
+    with pytest.raises(ValueError, match="do not split"):
+        tpar.make_batched_step(phase, mesh=mesh)(batch)
+    with pytest.raises(ValueError, match="no axis"):
+        tpar.make_batched_step(phase, mesh=chain_mesh(axis="seg"))(batch)
 
 
 def goddard_three_phase(ast):
