@@ -85,7 +85,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
    one factor + solve of each at the converged blocks, formation flying
    at 256 segments a phase sharded (the wide reduced border), a 16-lane
    ensemble over a scenario mesh against no mesh, `Utils.Profiler`
-   around one sharded factor, and K1 timed at the sharded launch shapes.
+   around one sharded factor, and K1 timed at the sharded launch shapes;
+21. the example suite: the scripts of `asset_asrl_torch/examples/` of
+   `EXAMPLE_SIZE` (20 of the 35 that solve a problem, those that fit
+   about 240 s), each called through its own entry (its function, or the
+   script run as `__main__`) at its published default call or its JAX
+   test's, held to the test's bounds and to the JAX package's flags and
+   objectives at the same call (`EXAMPLES_JAX`), with its time, peak
+   device memory and K1 launches; each script's own output goes to
+   `chiprun_out/examples/<name>.log`; K1 timed at the phase's widest and
+   largest launch shapes where they are new.
+
+    python3 chip_smoke.py --examples [--size=test] [NAME ...]
+
+builds K1 and runs phase 21 alone over every example (or the names
+given) at its full size (or its JAX test's): about 50 minutes for all.
 
 Phases 5 to 14 hold the port to the JAX package's host loop, so their
 problems run the port's host loop too (`UseFused = False`); phases 15 and
@@ -94,7 +108,7 @@ just before it drives its problem and reads them just after.  The line
 before the last two is a JSON object describing every kernel of the main
 path (narrow K1 launches from phase 10, wide K1 launches from the
 256-segment run of phase 8, and under `launches_elsewhere` those of the
-solves of phases 12 to 20); phases 17 to 20 print each run's time, peak
+solves of phases 12 to 21); phases 17 to 21 print each run's time, peak
 device memory and K1 launches; then the card's name and power limit; the
 last line is the JSON device record.
 """
@@ -102,6 +116,7 @@ last line is the JSON device record.
 import contextlib
 import gc
 import json
+import os
 import re
 import socket
 import statistics
@@ -325,6 +340,694 @@ PORKCHOP_64 = (
 # the JAX package's default solve of the Dionysus transfer at 150 segments:
 # (flag, iterations, final mass in kg)
 DIONYSUS_150 = (0, 52, 2715.9311712080384)
+
+
+# ---------------------------------------------------------------- phase 21
+# The example suite.  Each entry of `EXAMPLES` calls one script through an
+# example source (`PortExamples` here: the port's copies under
+# `asset_asrl_torch/examples/`; `tools/port_references.py` has the JAX
+# package's) and returns the numbers its test cites.  `full` is the
+# script's published default call, `test` the JAX test's (None: there is
+# no such call), `bounds` the test's assertions on those numbers (each a
+# message and a condition), `adaptive` marks a final mesh laid out by
+# rounding (held to flag and bounds, not to the objective), `rounding`
+# a problem whose flags or objectives move in the JAX package itself when
+# its starting point moves by rounding (`tools/perturbed_examples.py`):
+# the flags it reaches and the relative spread of its objectives.
+class PortExamples:
+    """The port's copies: `module(name)` imports one,
+    `main(name)` runs one as `python -m` would and returns its globals."""
+    prefix = "asset_asrl_torch.examples."
+
+    def module(self, name):
+        import importlib
+        return importlib.import_module(self.prefix + name)
+
+    def main(self, name):
+        import runpy
+        return runpy.run_module(self.prefix + name, run_name="__main__")
+
+
+@contextlib.contextmanager
+def solve_log(ast):
+    """Record every PSIOPT run inside the block, in order: (flag,
+    iterations, objective, whether its schedule optimizes).  The examples
+    return what their scripts print, not their solver's numbers."""
+    psiopt = ast.Solvers.PSIOPT
+    plain = psiopt._run
+    log = []
+
+    def spy(self, x0, schedule):
+        out = plain(self, x0, schedule)
+        log.append((int(self.ConvergeFlag), int(self.LastIterNum),
+                    float(self.LastObjVal),
+                    any("OPT" in str(m) for m in schedule)))
+        return out
+    psiopt._run = spy
+    try:
+        yield log
+    finally:
+        psiopt._run = plain
+
+
+class Example:
+    def __init__(self, module, test, full="test", bounds=(),
+                 adaptive=False, data=False, rounding=None):
+        self.module, self.test, self.bounds = module, test, bounds
+        self.full = test if full == "test" else full
+        self.adaptive, self.data, self.rounding = adaptive, data, rounding
+
+
+def _analytic(ex):
+    flag, uerr, lerr, _ = ex.module("AnalyticExample").run(print_level=2)
+    return dict(uerr=uerr, lerr=lerr)
+
+
+def _betts(name):
+    def call(ex):
+        flag, fw, _ = ex.module(name).run(print_level=2)
+        return dict(final_weight=fw)
+    return call
+
+
+def _bike(ex):
+    flag, tt, phase = ex.module("BikeObstacle").run(print_level=2)
+    T = np.array(phase.returnTraj())
+    return dict(time=tt, clearance=np.hypot(T[:, 0], T[:, 1] - 50.0).min())
+
+
+def _brachistochrone(ex):
+    return dict(time=ex.main("Brachistochrone")["Traj"][-1][3])
+
+
+def _bryson(ex):
+    flag, obj, _ = ex.module("BrysonDenham").run(print_level=2)
+    return dict(objective=obj)
+
+
+def _cartpole(ex):
+    return dict(objective=ex.main("CartPole")["phase"].optimizer.LastObjVal)
+
+
+def _delta3(ex):
+    return dict(final_mass=float(ex.main("Delta3Launch")["mfinal"]))
+
+
+def _dionysus(ex):
+    flag, fm, _ = ex.module("DionysusLowThrust").run(nsegs=150,
+                                                     print_level=2)
+    return dict(final_mass=fm)
+
+
+def _robot(ex):
+    flag, obj, _ = ex.module("FreeFlyingRobot").run(print_level=2)
+    return dict(objective=obj)
+
+
+def _goddard(ex):
+    g = ex.main("GoddardRocket")
+    return dict(h_single=g["T1"][-1][0] * g["Lstar"],
+                h_three=g["T2"][-1][0] * g["Lstar"])
+
+
+HANGING_LS = np.linspace(2.25, 8, 4)
+
+
+def _hanging(n):
+    def call(ex):
+        res = ex.module("HangingChain").run(n=n, Ls=HANGING_LS, nthreads=4)
+        out, anchors, sag = [], [], [-1.0]
+        for r, L in zip(res, HANGING_LS):
+            T = np.asarray(r.returnTraj())
+            out.append((int(r.optimizer.ConvergeFlag),
+                        int(r.optimizer.LastIterNum),
+                        float(r.optimizer.LastObjVal), True))
+            if r.optimizer.ConvergeFlag == 0:
+                anchors.append(max(abs(T[0, 0] - 1.0), abs(T[-1, 0] - 3.0)))
+                if L > 3.0:     # long chains sag below anchor a
+                    sag.append(T[:, 0].min() - 1.0)
+        # Jet's solves: one a length, in the order of the lengths
+        return dict(converged=len(anchors), anchors=max(anchors),
+                    sag=max(sag), solves=out)
+    return call
+
+
+def _heteroclinic(ex):
+    return dict(dv=ex.module("Heteroclinic").main()[2])
+
+
+def _hypersens(name, main):
+    def call(ex):
+        if main:
+            g = ex.main(name)
+            phase = g["phase"]
+        else:
+            phase = ex.module(name).run(print_level=2)[1]
+        return dict(objective=phase.optimizer.LastObjVal,
+                    mesh_converged=float(phase.MeshConverged))
+    return call
+
+
+def _climb(name):
+    def call(ex):
+        mod = ex.module(name)
+        if name == "MinimumTimeToClimb":
+            phase, flag = mod.solve(nsegs=50)
+        else:
+            phase, flag = mod.solve(print_level=2)
+        return dict(t_climb=phase.returnTraj()[-1][4] * mod.Tstar)
+    return call
+
+
+def _mountain(ex):
+    flag, t_esc, _ = ex.module("MountainCar").run(print_level=2)
+    return dict(time=t_esc)
+
+
+def _cannon(ex):
+    g = ex.main("MultiPhaseCannon")
+    D = g["D"]
+    return dict(range=D[-1][3] * g["LSTAR"], radius=D[-1][-1] * g["LSTAR"],
+                param_link=abs(g["aphase"].returnTraj()[0][-1] - D[-1][-1]))
+
+
+def _mpzermelo_test(ex):
+    mod = ex.module("MultiPhaseZermelo")
+    Points = [np.array(p) for p in [[0, 0], [2, 1], [3, 3]]]
+    traj, ocp = mod.navigate(Points, vM=2.5, wF=mod.uniformWind,
+                             print_level=2)
+    T0 = np.asarray(ocp.Phases[0].returnTraj())
+    T1 = np.asarray(ocp.Phases[1].returnTraj())
+    return dict(time=traj[-1][2], waypoints=max(
+        np.abs(T0[-1, :2] - [2, 1]).max(), np.abs(T1[-1, :2] - [3, 3]).max(),
+        abs(T0[-1, 2] - T1[0, 2])))
+
+
+def _mpzermelo_full(ex):
+    return dict(time=ex.main("MultiPhaseZermelo")["traj"][-1][2])
+
+
+def _msc(ex):
+    res = ex.module("MultiSpacecraftOptimization").ensemble_demo(
+        print_level=2)
+    return dict(converged=int(np.sum(res["flags"] == 0)),
+                lane_objective=float(np.asarray(res["objs"])[0]))
+
+
+def _docking(nsegs):
+    def call(ex):
+        flag, tf, _ = ex.module("OptimalDocking").Form2(nsegs=nsegs,
+                                                        print_level=2)
+        return dict(final_time=tf)
+    return call
+
+
+def _lyapunov(ex):
+    tl = ex.module("OrbitContinuation").lyapunov_family(dx=-0.02, lim=0.76)
+    ends = [np.asarray(o) for o in (tl[0], tl[-1])]
+    return dict(orbits=len(tl), periodicity=max(
+        max(abs(o[-1][1]), abs(o[-1][3])) for o in ends))
+
+
+def _parking(n1, n2):
+    def call(ex):
+        t, _ = ex.module("ParallelParking").Main(nsegs1=n1, nsegs2=n2,
+                                                 print_level=2)
+        return dict(time=t)
+    return call
+
+
+def _reentry(ex):
+    T1, T2, _ = ex.module("Reentry").run_reentry(nsegs=40, print_level=2)
+    return dict(crossrange=T1[-1][1], crossrange_q=T2[-1][1])
+
+
+def _reentry_mesh(ex):
+    T1, T2, _ = ex.module("MeshRefinement.Reentry").run(print_level=2)
+    return dict(crossrange=T1[-1][1], crossrange_q=T2[-1][1])
+
+
+def _simple_lt(nsegs):
+    def call(ex):
+        out = ex.module("SimpleLowThrust").run(nsegs=nsegs, print_level=2)
+        return dict(tof=out["time"][-1][6])
+    return call
+
+
+def _topputto(nsegs):
+    def call(ex):
+        To, Mo = ex.module("TopputtoLowThrust").run(nsegs=nsegs,
+                                                    print_level=2)
+        mo = np.asarray(Mo)
+        return dict(tof=To[-1][4], tof_mass=mo[-1][4], throttle=mo[-1][5])
+    return call
+
+
+def _vanderpol(ex):
+    return dict(objective=ex.main("VanDerPol")["phase"].optimizer.LastObjVal)
+
+
+def _zermelo_test(ex):
+    mod = ex.module("Zermelo")
+    traj, flag = mod.navigate(np.array([0.0, 0.0]), np.array([2.0, 1.0]),
+                              vM=1, wF=mod.noWind, nseg=48, tols=1e-10,
+                              print_level=2)
+    return dict(time=traj[-1][2])
+
+
+def _zermelo_winds(ex):
+    mod = ex.module("Zermelo")
+    A, B = np.array([0.0, -1.0]), np.array([1.0, 1.0])
+    t2, _ = mod.navigate(A, B, vM=1.25,
+                         wF=lambda xyt: mod.uniformWind(xyt, vel=0.5),
+                         nseg=64, tols=1e-10, print_level=2)
+    t4, _ = mod.navigate(A, B, vM=1.25, wF=mod.variableDirWind, nseg=64,
+                         tols=1e-10, print_level=2)
+    return dict(time_uniform=t2[-1][2], time_variable=t4[-1][2])
+
+
+def _zermelo_full(ex):
+    g = ex.main("Zermelo")
+    return {f"time_{i}": g[f"t{i}"][-1][2] for i in (1, 2, 3, 4)}
+
+
+def _cartpole_mesh(ex):
+    flag, phase = ex.module("MeshRefinement.CartPole").run(print_level=2)
+    return dict(objective=phase.optimizer.LastObjVal)
+
+
+def _ui_delta3(ex):
+    mod = ex.module("UpdatedInterface.Delta3Launch")
+    ocp = mod.build_ocp()
+    ocp.optimizer.PrintLevel = 2
+    ocp.solve_optimize()
+    return dict(final_mass=float(ocp.Phases[3].returnTraj()[-1][6]
+                                 * mod.Mstar))
+
+
+def _ui_goddard(ex):
+    Traj, Traj2 = ex.module("UpdatedInterface.GoddardRocket").run(
+        print_level=2)
+    return dict(h_single=Traj[-1][0], h_three=Traj2[-1][0])
+
+
+def _ui_cannon(ex):
+    _, dtraj = ex.module("UpdatedInterface.MultiPhaseCannon").run(
+        print_level=2)
+    d = np.asarray(dtraj)
+    return dict(range=d[-1][3], landing_h=abs(d[-1][2]))
+
+
+def _ui_reentry(ex):
+    tr = np.asarray(ex.module("UpdatedInterface.Reentry").run(
+        print_level=2)[0])
+    return dict(crossrange=tr[-1][1])
+
+
+BETTS_W = ("final weight within 2e-4 of Betts' 0.220179 lb",
+           lambda c: abs(c["final_weight"] - 0.220179) < 2e-4)
+CLIMB_T = ("climb time within 8 s of 324 s",
+           lambda c: abs(c["t_climb"] - 324.0) < 8.0)
+REENTRY_X = ("crossranges within 2e-3 rad of Betts' 0.59588 / 0.53462",
+             lambda c: abs(c["crossrange"] - 0.5958800738629952) < 2e-3
+             and abs(c["crossrange_q"] - 0.534620087611498) < 2e-3)
+DELTA3_M = ("final mass within 1 kg of 7529.7499",
+            lambda c: abs(c["final_mass"] - 7529.7499) < 1.0)
+
+# in phase 21's order: the paths no earlier phase drives come first
+EXAMPLES = {
+    "Heteroclinic": Example("Heteroclinic", _heteroclinic, bounds=[
+        ("connection DV under 10 m/s", lambda c: c["dv"] < 10.0)]),
+    "BettsLowThrust": Example("BettsLowThrust", _betts("BettsLowThrust"),
+                              bounds=[BETTS_W], adaptive=True),
+    "MeshRefinement.Reentry": Example(
+        "MeshRefinement.Reentry", None, _reentry_mesh, bounds=[REENTRY_X],
+        adaptive=True),
+    "OptimalDocking": Example(
+        "OptimalDocking", _docking(96), _docking(192), bounds=[
+            ("final time in (120, 260) s",
+             lambda c: 120 < c["final_time"] < 260)]),
+    # two local optima 1.4e-5 apart; either package reaches either
+    "ParallelParking": Example(
+        "ParallelParking", _parking(40, 80), _parking(50, 150), bounds=[
+            ("maneuver time within 0.4 s of 18.426 s",
+             lambda c: abs(c["time"] - 18.426) < 0.4)],
+        rounding=({0, 1}, 2e-5)),
+    "HangingChain": Example("HangingChain", _hanging(48), _hanging(100),
+                            bounds=[("3 of 4 chains converge",
+                                     lambda c: c["converged"] >= 3),
+                                    ("anchors held to 1e-6",
+                                     lambda c: c["anchors"] < 1e-6),
+                                    ("long chains sag below anchor a",
+                                     lambda c: c["sag"] < 0.0)],
+                            rounding=({0, 2}, 1e-5)),
+    "OrbitContinuation": Example("OrbitContinuation", _lyapunov, bounds=[
+        ("3 orbits at least", lambda c: c["orbits"] >= 3),
+        ("first and last orbit periodic to 1e-8",
+         lambda c: c["periodicity"] < 1e-8)]),
+    "GoddardRocket": Example("GoddardRocket", None, _goddard, bounds=[
+        ("final altitudes within 20 ft of 18727.8 ft",
+         lambda c: abs(c["h_single"] - 18727.8) < 20
+         and abs(c["h_three"] - 18727.8) < 20)]),
+    "MultiPhaseCannon": Example("MultiPhaseCannon", None, _cannon, bounds=[
+        ("range within 25 m of 3280.2 m",
+         lambda c: abs(c["range"] - 3280.2) < 25),
+        ("radius within 5 mm of 4.195 cm",
+         lambda c: abs(c["radius"] - 0.04195) < 5e-3),
+        ("ODE parameter linked to 1e-10", lambda c: c["param_link"] < 1e-10)]),
+    "TopputtoLowThrust": Example(
+        "TopputtoLowThrust", _topputto(150), _topputto(200), bounds=[
+            ("time-optimal tof within 1 of 55.55",
+             lambda c: abs(c["tof"] - 55.55) < 1.0),
+            ("fuel-optimal tof within 3 of 115.8, ends coasting",
+             lambda c: abs(c["tof_mass"] - 115.8) < 3.0
+             and c["throttle"] < 0.01)], rounding=({0}, 3e-4)),
+    "SimpleLowThrust": Example(
+        "SimpleLowThrust", _simple_lt(64), _simple_lt(128), bounds=[
+            ("tof within 0.3 of 18.27",
+             lambda c: abs(c["tof"] - 18.27) < 0.3)]),
+    "FreeFlyingRobot": Example("FreeFlyingRobot", _robot, bounds=[
+        ("objective within 0.05 of 7.910",
+         lambda c: abs(c["objective"] - 7.910) < 0.05)]),
+    "MountainCar": Example("MountainCar", _mountain, bounds=[
+        ("escape time within 3 of 103",
+         lambda c: abs(c["time"] - 103.0) < 3.0)],
+        rounding=({0, 1}, 1e-2)),
+    "BikeObstacle": Example("BikeObstacle", _bike, bounds=[
+        ("transit time in (4.8, 5.3) s", lambda c: 4.8 < c["time"] < 5.3),
+        ("obstacle margin above 7.49", lambda c: c["clearance"] > 7.49)]),
+    "UpdatedInterface.BettsLowThrust": Example(
+        "UpdatedInterface.BettsLowThrust",
+        _betts("UpdatedInterface.BettsLowThrust"), bounds=[BETTS_W],
+        adaptive=True),
+    "UpdatedInterface.Reentry": Example(
+        "UpdatedInterface.Reentry", _ui_reentry, bounds=[
+            ("crossrange within 2e-3 rad of Betts' 0.59588",
+             lambda c: abs(c["crossrange"] - 0.5958800738629952) < 2e-3)]),
+    "UpdatedInterface.Delta3Launch": Example(
+        "UpdatedInterface.Delta3Launch", _ui_delta3, bounds=[DELTA3_M],
+        adaptive=True),
+    "UpdatedInterface.GoddardRocket": Example(
+        "UpdatedInterface.GoddardRocket", _ui_goddard, bounds=[
+            ("altitude within 30 ft of 18728 ft",
+             lambda c: abs(c["h_single"] - 18728.0) < 30.0),
+            ("single and 3-phase within 0.5 ft",
+             lambda c: abs(c["h_single"] - c["h_three"]) < 0.5)]),
+    "UpdatedInterface.MultiPhaseCannon": Example(
+        "UpdatedInterface.MultiPhaseCannon", _ui_cannon, bounds=[
+            ("range within 0.05 km of 3.280 km",
+             lambda c: abs(c["range"] - 3.280) < 0.05),
+            ("lands at h = 0 to 1e-8", lambda c: c["landing_h"] < 1e-8)]),
+    "UpdatedInterface.MinimumTimeToClimb": Example(
+        "UpdatedInterface.MinimumTimeToClimb",
+        _climb("UpdatedInterface.MinimumTimeToClimb"), bounds=[CLIMB_T]),
+    "UpdatedInterface.MinimumTimeToClimbTables": Example(
+        "UpdatedInterface.MinimumTimeToClimbTables", None, None, data=True),
+    "AnalyticExample": Example("AnalyticExample", _analytic, bounds=[
+        ("control error under 5e-3", lambda c: c["uerr"] < 5e-3),
+        ("costate error under 5e-2", lambda c: c["lerr"] < 5e-2)]),
+    "BrysonDenham": Example("BrysonDenham", _bryson, bounds=[
+        ("objective within 1e-2 of 4", lambda c: abs(c["objective"] - 4.0)
+         < 1e-2)]),
+    "VanDerPol": Example("VanDerPol", None, _vanderpol, bounds=[
+        ("objective within 0.1 of 2.87",
+         lambda c: abs(c["objective"] - 2.87) < 0.1)]),
+    # at the script's default tolerance (1e-12) a solve ends CONVERGED or
+    # ACCEPTABLE at the same optimum, as rounding has it
+    "Zermelo": Example("Zermelo", _zermelo_test, _zermelo_full, rounding=(
+        {0, 1}, 0.0), bounds=[
+        ("no-wind time sqrt(5) to 1e-6",
+         lambda c: abs(c.get("time", c.get("time_1")) - np.sqrt(5.0))
+         < 1e-6),
+        ("wind times in (0, 10)", lambda c: all(
+            0 < v < 10 for k, v in c.items() if k[-1] in "234"))]),
+    "ZermeloWinds": Example("Zermelo", _zermelo_winds, None, bounds=[
+        ("wind times in (0, 10)", lambda c: 0 < c["time_uniform"] < 10
+         and 0 < c["time_variable"] < 10)]),
+    # the script's own run: its first wind ends CONVERGED or ACCEPTABLE at
+    # the same optimum, the other two DIVERGE in both packages
+    "MultiPhaseZermelo": Example(
+        "MultiPhaseZermelo", _mpzermelo_test, _mpzermelo_full,
+        rounding=({0, 1, 3}, 0.0), bounds=[
+            ("total time within 0.05 of 3.2356 (test call)",
+             lambda c: "waypoints" not in c
+             or abs(c["time"] - 3.2356) < 0.05),
+            ("waypoints hit, time continuous to 1e-6",
+             lambda c: c.get("waypoints", 0.0) < 1e-6)]),
+    "MeshRefinement.CartPole": Example(
+        "MeshRefinement.CartPole", None, _cartpole_mesh, bounds=[
+            ("objective within 0.1 of 58.83 (tests/test_fullproblems.py)",
+             lambda c: abs(c["objective"] - 58.83219229674185) < 0.1)],
+        adaptive=True),
+    "MeshRefinement.HyperSensLong": Example(
+        "MeshRefinement.HyperSensLong", None,
+        _hypersens("MeshRefinement.HyperSensLong", False), bounds=[
+            ("mesh converged", lambda c: c["mesh_converged"] == 1.0)],
+        adaptive=True),
+    "MeshRefinement.Delta3Launch": Example(
+        "MeshRefinement.Delta3Launch", None, None),
+    # solved at full size by earlier phases: once here, at the test's size
+    "CartPole": Example("CartPole", None, _cartpole, bounds=[
+        ("objective within 0.1 of 58.83",
+         lambda c: abs(c["objective"] - 58.83219229674185) < 0.1)]),
+    "Brachistochrone": Example("Brachistochrone", None, _brachistochrone,
+                               bounds=[("time within 1e-3 of 1.8013",
+                                        lambda c: abs(c["time"] - 1.8013)
+                                        < 1e-3)]),
+    "Delta3Launch": Example("Delta3Launch", None, _delta3, bounds=[DELTA3_M]),
+    "HyperSens": Example("HyperSens", None, _hypersens("HyperSens", True),
+                         bounds=[("mesh converged",
+                                  lambda c: c["mesh_converged"] == 1.0)],
+                         adaptive=True),
+    "MultiSpacecraftOptimization": Example(
+        "MultiSpacecraftOptimization", None, _msc, bounds=[
+            ("every one of 64 scenarios converges",
+             lambda c: c["converged"] == 64)]),
+    "MinimumTimeToClimb": Example("MinimumTimeToClimb",
+                                  _climb("MinimumTimeToClimb"),
+                                  bounds=[CLIMB_T]),
+    "MinimumTimeToClimbTables": Example("MinimumTimeToClimbTables", None,
+                                        None, data=True),
+    "DionysusLowThrust": Example("DionysusLowThrust", _dionysus, bounds=[
+        ("final mass above 2700 kg", lambda c: c["final_mass"] > 2700)]),
+    "Reentry": Example("Reentry", _reentry, bounds=[REENTRY_X]),
+}
+
+
+# What each call of `EXAMPLES` passes: (the JAX test's, phase 21's full)
+EXAMPLE_ARGS = {
+    "Heteroclinic": ("main()", "main() (nman=40)"),
+    "BettsLowThrust": ("run()", "run() (16 segments, adaptive)"),
+    "MeshRefinement.Reentry": (None, "run() (40 segments, adaptive)"),
+    "OptimalDocking": ("Form2(nsegs=96)", "Form2() (192 segments)"),
+    "ParallelParking": ("Main(nsegs1=40, nsegs2=80)",
+                        "Main() (50 and 150 segments)"),
+    "HangingChain": ("run(n=48, Ls=4 lengths)", "run(n=100, Ls=4 lengths)"),
+    "OrbitContinuation": ("lyapunov_family(dx=-0.02, lim=0.76)",
+                          "lyapunov_family(dx=-0.02, lim=0.76)"),
+    "GoddardRocket": (None, "__main__ (single and 3-phase)"),
+    "MultiPhaseCannon": (None, "__main__ (96 LGL5 segments a phase)"),
+    "TopputtoLowThrust": ("run(nsegs=150)", "run() (200 segments)"),
+    "SimpleLowThrust": ("run(nsegs=64)", "run() (128 segments)"),
+    "FreeFlyingRobot": ("run()", "run() (128 segments)"),
+    "MountainCar": ("run()", "run() (128 segments)"),
+    "BikeObstacle": ("run()", "run() (128 segments)"),
+    "UpdatedInterface.BettsLowThrust": ("run()",
+                                        "run() (16 segments, adaptive)"),
+    "UpdatedInterface.Reentry": ("run()", "run() (40 then 200 segments)"),
+    "UpdatedInterface.Delta3Launch": ("build_ocp() + solve_optimize()",
+                                      "build_ocp() + solve_optimize()"),
+    "UpdatedInterface.GoddardRocket": ("run()", "run()"),
+    "UpdatedInterface.MultiPhaseCannon": ("run()", "run()"),
+    "UpdatedInterface.MinimumTimeToClimb": ("solve()",
+                                            "solve() (50 segments)"),
+    "AnalyticExample": ("run()", "run() (20 segments)"),
+    "BrysonDenham": ("run()", "run() (32 segments)"),
+    "VanDerPol": (None, "__main__ (128 segments)"),
+    "Zermelo": ("navigate(no wind, nseg=48)", "__main__ (four winds)"),
+    "ZermeloWinds": ("navigate(two winds, nseg=64)", None),
+    "MultiPhaseZermelo": ("navigate(3 points, vM=2.5)",
+                          "__main__ (4 points, three winds)"),
+    "MeshRefinement.CartPole": (None, "run() (20 segments, adaptive)"),
+    "MeshRefinement.HyperSensLong": (None, "run() (50 segments, adaptive)"),
+    "CartPole": (None, "__main__ (64 segments)"),
+    "Brachistochrone": (None, "__main__ (32 segments)"),
+    "Delta3Launch": (None, "__main__ (40 segments a phase)"),
+    "HyperSens": (None, "__main__ (10 segments, adaptive)"),
+    "MultiSpacecraftOptimization": (None, "ensemble_demo() (64 scenarios)"),
+    "MinimumTimeToClimb": ("solve(nsegs=50)", "solve(nsegs=50)"),
+    "DionysusLowThrust": ("run(nsegs=150)", "run(nsegs=150)"),
+    "Reentry": ("run_reentry(nsegs=40)", "run_reentry(nsegs=40)"),
+}
+# The examples phase 21 runs, and at which size ("full" or "test"):
+# about 240 s on an H100 80GB HBM3 at 700.00 W, so that the whole script
+# stays near 15 minutes.  The others take 2-12 minutes each there (their
+# time is the host's: `PERF.md` section 6) and run in
+# `python3 chip_smoke.py --examples`, which runs every one.
+EXAMPLE_SIZE = {
+    "MeshRefinement.Reentry": "full", "HangingChain": "full",
+    "OrbitContinuation": "full", "GoddardRocket": "full",
+    "MultiPhaseCannon": "full", "SimpleLowThrust": "full",
+    "FreeFlyingRobot": "full", "MountainCar": "full", "BikeObstacle": "full",
+    "UpdatedInterface.MultiPhaseCannon": "full", "AnalyticExample": "full",
+    "BrysonDenham": "full", "VanDerPol": "full", "Zermelo": "full",
+    "MultiPhaseZermelo": "test", "MeshRefinement.CartPole": "full",
+    "MeshRefinement.HyperSensLong": "full", "CartPole": "full",
+    "Brachistochrone": "full", "MultiSpacecraftOptimization": "full"}
+EXAMPLE_SKIP = {"MeshRefinement.Delta3Launch": "the adaptive Delta III of "
+                "phase 13 (40 segments a phase, deboor) is the same solve",
+                "ZermeloWinds": "its two winds are two of Zermelo's four"}
+
+# The JAX package's run of each example (`python tools/port_references.py
+# --examples`; x64, CPU) at its JAX test's call ("test") and at phase
+# 21's ("full"): every solve's flag, the objective of every solve that
+# optimizes (None: that solve failed)
+EXAMPLES_JAX = {
+    'AnalyticExample full': ([0], [0.7615941713186274]),
+    'AnalyticExample test': ([0], [0.7615941713186274]),
+    'BettsLowThrust full':
+        ([0, 0, 0], [-0.2184659932577457, -0.220364803226086,
+        -0.22036684595538925]),
+    'BettsLowThrust test':
+        ([0, 0, 0], [-0.2184659932577457, -0.220364803226086,
+        -0.22036684595538925]),
+    'BikeObstacle full': ([0], [5.0450118960274315]),
+    'BikeObstacle test': ([0], [5.0450118960274315]),
+    'Brachistochrone full': ([0], [1.8012954173024338]),
+    'BrysonDenham full': ([0], [4.000020729075615]),
+    'BrysonDenham test': ([0], [4.000020729075615]),
+    'CartPole full': ([0], [58.80803201051268]),
+    'Delta3Launch full': ([0], [-0.02497810170578128]),
+    'DionysusLowThrust full': ([0], [-0.6789827928020096]),
+    'DionysusLowThrust test': ([0], [-0.6789827928020096]),
+    'FreeFlyingRobot full': ([0], [7.914692750810655]),
+    'FreeFlyingRobot test': ([0], [7.914692750810655]),
+    'GoddardRocket full': ([0, 0], [-1.8727809435577538, -1.8728075235747599]),
+    'HangingChain full':
+        ([0, 0, 0, 0], [4.500000231408517, 5.28814157410406, 6.085219675415805,
+        6.062032585431703]),
+    'HangingChain test':
+        ([0, 0, 0, 2], [4.5000012918731045, 5.288221458507048,
+        6.085553015804939, 5.754210279304801]),
+    'Heteroclinic full': ([0, 0, 0], [2.461776832771027e-09]),
+    'Heteroclinic test': ([0, 0, 0], [2.461776832771027e-09]),
+    'HyperSens full':
+        ([0, 0, 0, 0], [601.3093435154917, 82.20479358629149,
+        5.365885010094088, 1.6733089195034014]),
+    'MeshRefinement.CartPole full':
+        ([0, 0], [58.870781088030135, 58.807685887662124]),
+    'MeshRefinement.HyperSensLong full':
+        ([0, 0, 0], [40.97875596003553, 3.548724207599654,
+        1.6729519134296469]),
+    'MeshRefinement.Reentry full':
+        ([0, 0, 0, 0], [-0.5958791817960595, -0.5958800752802882,
+        -0.5346210645968248, -0.5346145609378685]),
+    'MinimumTimeToClimb full': ([0], [1.2868527875593083]),
+    'MinimumTimeToClimb test': ([0], [1.2868527875593083]),
+    'MountainCar full': ([1], [1.0397658515128714]),
+    'MountainCar test': ([1], [1.0397658515128714]),
+    'MultiPhaseCannon full': ([0], [-3.2802033834430975]),
+    'MultiPhaseZermelo full': ([0, 3, 3], [3.753687162380985, None, None]),
+    'MultiPhaseZermelo test': ([0], [3.235604395235786]),
+    'MultiSpacecraftOptimization full': ([0], [0.5942206860287187]),
+    'OptimalDocking full': ([0], [5.73664262117812]),
+    'OptimalDocking test': ([0], [5.736996504937732]),
+    'OrbitContinuation full': ([0, 0, 0, 0, 0, 0], []),
+    'OrbitContinuation test': ([0, 0, 0, 0, 0, 0], []),
+    'ParallelParking full': ([0, 1], [18.319928552522434, 18.288927492641143]),
+    'ParallelParking test': ([0, 0], [18.422147433095375, 18.34973278259271]),
+    'Reentry full':
+        ([0, 0, 0], [-0.5958791817960595, -0.595880075472542,
+        -0.5346228972812044]),
+    'Reentry test':
+        ([0, 0, 0], [-0.5958791817960595, -0.595880075472542,
+        -0.5346228972812044]),
+    'SimpleLowThrust full':
+        ([0, 0, 0], [18.26500218731561, 5.390174488988392, 14.52331948465483]),
+    'SimpleLowThrust test':
+        ([0, 0, 1], [18.27362070192168, 5.424351436191384, 14.56283762089762]),
+    'TopputtoLowThrust full':
+        ([0, 0, 0], [0.5554696383678533, 0.47703298011435313,
+        0.476747931163302]),
+    'TopputtoLowThrust test':
+        ([0, 0, 0], [0.5554696007701596, 0.47934423884191923,
+        0.4768107377578154]),
+    'UpdatedInterface.BettsLowThrust full':
+        ([0, 0, 0], [-0.2184659932577457, -0.220364803226086,
+        -0.22036684595538925]),
+    'UpdatedInterface.BettsLowThrust test':
+        ([0, 0, 0], [-0.2184659932577457, -0.220364803226086,
+        -0.22036684595538925]),
+    'UpdatedInterface.Delta3Launch full': ([0], [-0.02497810170578128]),
+    'UpdatedInterface.Delta3Launch test': ([0], [-0.02497810170578128]),
+    'UpdatedInterface.GoddardRocket full':
+        ([0, 0], [-1.8728055750242727, -1.8728075235747617]),
+    'UpdatedInterface.GoddardRocket test':
+        ([0, 0], [-1.8728055750242727, -1.8728075235747617]),
+    'UpdatedInterface.MinimumTimeToClimb full': ([0], [1.286852787559307]),
+    'UpdatedInterface.MinimumTimeToClimb test': ([0], [1.286852787559307]),
+    'UpdatedInterface.MultiPhaseCannon full': ([0], [-3.2802033834430975]),
+    'UpdatedInterface.MultiPhaseCannon test': ([0], [-3.2802033834430975]),
+    'UpdatedInterface.Reentry full':
+        ([0, 0, 0], [-0.5958791817960595, -0.595880075472542,
+        -0.5346228972812044]),
+    'UpdatedInterface.Reentry test':
+        ([0, 0, 0], [-0.5958791817960595, -0.595880075472542,
+        -0.5346228972812044]),
+    'VanDerPol full': ([0], [2.8749745212848783]),
+    'Zermelo full':
+        ([1, 0, 1, 0], [2.23606797749979, 1.7009270229362867,
+        1.194491642650939, 2.436160557764707]),
+    'Zermelo test': ([0], [2.2360679774997894]),
+    'ZermeloWinds test': ([0, 0], [1.7009270229362867, 2.4361605225570657]),
+}
+
+def run_example(ast, ex, call):
+    """One call of an example: (cited numbers, solves, seconds), where
+    solves are (flag, iterations, objective, optimizes) in order."""
+    t0 = time.perf_counter()
+    with solve_log(ast) as log:
+        cited = call(ex)
+    secs = time.perf_counter() - t0
+    solves = cited.pop("solves", None) or log
+    cited = {k: float(v) for k, v in cited.items()}
+    return cited, [tuple(s) for s in solves], secs
+
+
+def example_faults(spec, cited, solves, ref=None, tol=1e-6):
+    """What is wrong with one example's run (`spec` None: a run of no
+    entry of `EXAMPLES`): its test's bounds, and, with `ref` (the JAX
+    package's run at the same call: every solve's flag, the objective of
+    every solve that optimizes, None where that solve failed), each flag
+    and the objective of each such solve that did not fail to `tol`
+    relative (absolute below 1).  An
+    adaptive run is held to its last flag only (its meshes are laid out
+    by rounding); one whose result rounding moves (`spec.rounding`) to
+    flags of its allowed set and objectives within its spread."""
+    bad = [msg for msg, ok in spec.bounds if not ok(cited)] if spec else []
+    if ref is None:
+        return bad
+    flags, objs = ref
+    got = [s[0] for s in solves]
+    if spec and spec.adaptive:
+        if got[-1:] != list(flags[-1:]):
+            bad.append(f"final flag {got[-1:]} where JAX gives {flags[-1:]}")
+        return bad
+    rounding = spec.rounding if spec else None
+    if rounding:
+        tol = max(tol, rounding[1])
+        if len(got) != len(flags) or any(f not in rounding[0] for f in got):
+            bad.append(f"flags {got} where JAX gives {list(flags)} and "
+                       f"{sorted(rounding[0])} are allowed")
+    elif got != list(flags):
+        bad.append(f"flags {got} where JAX gives {list(flags)}")
+    mine = [(s[0], s[2]) for s in solves if s[3]]
+    if len(mine) != len(objs) or any(
+            f < 2 and b is not None and abs(a - b) > tol * max(abs(b), 1.0)
+            for (f, a), b in zip(mine, objs)):
+        bad.append(f"objectives {[a for _, a in mine]} where JAX gives "
+                   f"{list(objs)}")
+    return bad
 
 
 def cartpole_ode(ast):
@@ -2210,6 +2913,90 @@ def shape_counts(shapes):
     return sorted(counts.items(), key=lambda kv: (-kv[0][0], kv[0][1]))
 
 
+def example_held(ast, label, ref, tol=1e-8, size="test", ex=None):
+    """One call of an example (`size`: its JAX test's or phase 21's) from
+    `ex` (the port's copies by default), held to its test's bounds and to
+    `ref` (`example_faults`); returns (cited numbers, solves)."""
+    spec = EXAMPLES[label]
+    call = spec.test if size == "test" else spec.full
+    cited, solves, _ = run_example(ast, ex or PortExamples(), call)
+    bad = example_faults(spec, cited, solves, ref, tol)
+    check(not bad, f"{label}: {bad}")
+    return cited, solves
+
+def example_shapes(shapes, timed):
+    """The launch shapes of phase 21 that K1 is timed at: the widest and
+    the largest (K W^2) of its narrow and of its wide launches, where no
+    row of `timed` is as wide or as large."""
+    pick = []
+    for wide in (False, True):
+        mine = [s for s in set(shapes) if (s[1] > 64) == wide]
+        rows = [s for s in timed if (s[1] > 64) == wide]
+        if not mine:
+            continue
+        widest = max(mine, key=lambda s: (s[1], s[0]))
+        largest = max(mine, key=lambda s: (s[0] * s[1] ** 2, s[1]))
+        if widest[1] > max(w for _, w in rows):
+            pick.append(widest)
+        if largest[0] * largest[1] ** 2 > max(k * w * w for k, w in rows):
+            pick.append(largest)
+    return list(dict.fromkeys(pick))
+
+
+def phase_examples(ast, ck, kb, logdir, plan=None):
+    """Phase 21: the example suite.  Every script of
+    `asset_asrl_torch/examples/` that solves a problem is called on the
+    card through its own entry, at the size of `plan` (`EXAMPLE_SIZE`
+    unless given), each example's output going to `logdir/<name>.log`;
+    each is held to its
+    JAX test's bounds and to the JAX package's flags and objectives at
+    the same call (`EXAMPLES_JAX`, 1e-6 relative; an adaptive run to its
+    last flag), and must launch K1.  Returns each example's K1 launches
+    and the launch shapes of the whole phase."""
+    import contextlib as cl
+    os.environ.setdefault("MPLBACKEND", "Agg")   # the scripts' plots
+    os.makedirs(logdir, exist_ok=True)
+    ex, launched, faults = PortExamples(), {}, []
+    with k1_log(kb) as shapes:
+        for label, spec in EXAMPLES.items():
+            if spec.data:
+                mod = ex.module(spec.module)
+                print(f"[{label}] data only: {len(vars(mod))} names")
+                continue
+            size = (plan or EXAMPLE_SIZE).get(label)
+            if size is None:
+                print(f"[{label}] not run: " + EXAMPLE_SKIP.get(
+                    label, "`python3 chip_smoke.py --examples` runs it"))
+                continue
+            call = spec.full if size == "full" else spec.test
+            reset_peak_memory()
+            with open(os.path.join(logdir, label + ".log"), "w") as log, \
+                    cl.redirect_stdout(log):
+                (cited, solves, _), n1, nw, secs = counted(
+                    ck, lambda: run_example(ast, ex, call))
+            peak = torch.cuda.max_memory_allocated()
+            its = sum(s[1] for s in solves)
+            print(f"[{label}] {EXAMPLE_ARGS[label][size == 'full']}: flags "
+                  f"{[s[0] for s in solves]}, iterations "
+                  f"{[s[1] for s in solves]}, objective "
+                  f"{[s[2] for s in solves if s[3]][-1:]}, cited {cited}; "
+                  f"{secs:.3f} s, {its / secs:.2f} iterations/s, peak "
+                  f"device memory {peak / 2**20:.1f} MiB, K1 launches "
+                  f"{n1} narrow / {nw} wide", flush=True)
+            bad = example_faults(spec, cited, solves,
+                                 EXAMPLES_JAX[f"{label} {size}"])
+            if n1 + nw == 0:
+                bad.append("never launched K1")
+            faults += [f"{label}: {b}" for b in bad]
+            launched[f"example {label}"] = (n1, nw)
+    if shapes:
+        print(f"K1 launch shapes (K, W) of the phase: {len(shapes)} launches, "
+              f"widest {max(shapes, key=lambda s: (s[1], s[0]))}, largest "
+              f"{max(shapes, key=lambda s: (s[0] * s[1] ** 2, s[1]))}")
+    check(not faults, "; ".join(faults))
+    return launched, shapes
+
+
 def phase_distribution(ast, ck, kb, nsegs=5000, formation=256, ens_segs=128,
                        lanes=16):
     """Phase 20: distribution.  A one-rank process group (NCCL on the
@@ -2394,24 +3181,48 @@ def phase_distribution(ast, ck, kb, nsegs=5000, formation=256, ens_segs=128,
     return out, flat_shapes
 
 
-def time_sharded_k1(ck, shapes):
-    """K1 against its plain version (1e-12) and timed at the sharded
-    CartPole's launch shapes: the three largest (the first local levels
-    of the 8 shards in one launch) and the reduced chain's first level
-    (4 blocks for 8 shards)."""
-    distinct = sorted(set(shapes), reverse=True)
-    pick = distinct[:3] + [k for k in distinct if k[0] == 4]
-    for i, (K, W) in enumerate(dict.fromkeys(pick)):
-        D = quasi_definite_blocks(K, W, seed=300 + i, dtype=torch.float64)
+def time_k1_at(ck, shapes, seed):
+    """K1 against its plain version (1e-12) and timed at each (K, W) of
+    `shapes`; returns the measurements by (K, W)."""
+    out = {}
+    for i, (K, W) in enumerate(shapes):
+        D = quasi_definite_blocks(K, W, seed=seed + i, dtype=torch.float64)
         X = ck.gj_inverse_inertia(D)[0]
         Xr = plain_inertia(ck, D)[0]
-        print(f"sharded-path K1 ({K},{W},{W}) f64: inverse rel "
-              f"{rel(X, Xr):.3e}")
-        check(rel(X, Xr) <= 1e-12, f"K1 off at the sharded shape {K, W}")
-        k1_time(ck, D, float((X - Xr).abs().max()))
+        print(f"K1 ({K},{W},{W}) f64: inverse rel {rel(X, Xr):.3e}")
+        check(rel(X, Xr) <= 1e-12, f"K1 off at {K, W}")
+        out[(K, W)] = k1_time(ck, D, float((X - Xr).abs().max()))
+    return out
 
 
-def main():
+def sharded_shapes(shapes):
+    """The sharded CartPole's launch shapes that K1 is timed at: the
+    three largest (the first local levels of the 8 shards in one launch)
+    and the reduced chain's first level (4 blocks for 8 shards)."""
+    distinct = sorted(set(shapes), reverse=True)
+    return list(dict.fromkeys(distinct[:3] + [k for k in distinct
+                                              if k[0] == 4]))
+
+
+def sweep_plan(args):
+    """`--examples [--size=test|full] [LABEL ...]`: every example that
+    solves a problem (or the labels given) at its full size or its JAX
+    test's."""
+    size = ([a[7:] for a in args if a.startswith("--size=")] or ["full"])[0]
+    labels = [a for a in args if not a.startswith("--")] or list(EXAMPLES)
+    plan = {}
+    for label in labels:
+        spec = EXAMPLES[label]
+        if spec.data or spec.full is None and spec.test is None:
+            continue
+        if getattr(spec, size) is not None:
+            plan[label] = size
+        elif size == "test":            # a script run as `__main__`
+            plan[label] = "full"
+    return plan
+
+
+def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -2433,6 +3244,18 @@ def main():
     ck.build()
     print(f"build: K1 compiled and loaded in {time.perf_counter() - t0:.2f} s")
     print_ptxas(ck)
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "chiprun_out", "examples")
+    if "--examples" in argv:
+        t0 = time.perf_counter()
+        phase_examples(ast, ck, kb, logdir, sweep_plan(
+            argv[argv.index("--examples") + 1:]))
+        print(f"example sweep: {time.perf_counter() - t0:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     k1 = phase_kernel(ck)
     phase_bcr(kb)
@@ -2455,13 +3278,18 @@ def main():
         adaptive.update(new_phase(ast, ck))
         print(f"{new_phase.__name__}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launched, sharded_shapes = phase_distribution(ast, ck, kb)
+    launched, shapes = phase_distribution(ast, ck, kb)
     adaptive.update(launched)
-    time_sharded_k1(ck, sharded_shapes)
+    k1.update(time_k1_at(ck, sharded_shapes(shapes), seed=300))
     print(f"phase_distribution: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launched, shapes = phase_examples(ast, ck, kb, logdir)
+    adaptive.update(launched)
+    k1.update(time_k1_at(ck, example_shapes(shapes, K1_TIMED), seed=400))
+    print(f"phase_examples: {time.perf_counter() - t0:.1f} s")
 
     launches = {"gj_inverse": narrow, "gj_inverse_wide": wide}
-    # the launches of the solves of phases 12 to 20
+    # the launches of the solves of phases 12 to 21
     more = {"gj_inverse": {k: n for k, (n, _) in adaptive.items()},
             "gj_inverse_wide": {k: n for k, (_, n) in adaptive.items()}}
     source = {"gj_inverse": "asset_asrl_torch/csrc/gj_inverse.cu",
@@ -2487,4 +3315,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

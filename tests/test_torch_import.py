@@ -61,7 +61,14 @@ NEW_MODULES = ["asset_asrl_torch.Integrators", "asset_asrl_torch.Integrators.rk"
                "asset_asrl_torch.Astro.Extensions.frame_kinematics",
                "asset_asrl_torch.Utils", "asset_asrl_torch.distributed",
                "asset_asrl_torch.Solvers.kkt_sharded",
-               "asset_asrl_torch.tools.mp_worker"]
+               "asset_asrl_torch.tools.mp_worker",
+               "asset_asrl_torch.examples"]
+# the example suite: a copy of every script of the JAX package's
+# `examples/` (importing one builds its tables and classes, and solves
+# nothing)
+NEW_MODULES += ["asset_asrl_torch.examples." + ".".join(
+    p.relative_to(ROOT / "examples").with_suffix("").parts)
+    for p in sorted((ROOT / "examples").rglob("*.py"))]
 
 
 def test_every_module_imports_without_jax():

@@ -192,3 +192,37 @@ def test_conditional_compute():
         assert c.compute([0.2, 0.3]) is True
         assert c.compute([0.2, 0.8]) is False
         assert ((a[0] > a[1]) | (a[1] <= 0.1)).compute([0.6, 0.5]) is True
+
+
+def test_scaled_wrappers():
+    """`tests/test_parity.py::test_scaled_wrappers` on the port: Scaled,
+    RowScaled and IOScaled scale values, and IOScaled's derivatives follow
+    the chain rule; and each equals the JAX package's wrapper on the same
+    input (1e-12)."""
+    def wrappers(vf):
+        A = vf.Arguments(3)
+        f = vf.stack([A[0] * A[1], vf.sin(A[2])])
+        return f, (vf.Scaled(f, 2.5), vf.RowScaled(f, rs),
+                   vf.IOScaled(f, ins, outs))
+
+    x = np.array([0.7, -1.3, 0.4])
+    rs = np.array([2.0, -3.0])
+    ins = np.array([0.5, 2.0, 1.5])
+    outs = np.array([10.0, 0.1])
+    lam = np.array([1.3, -0.2])
+    f, (g, h, k) = wrappers(tast.VectorFunctions)
+    fx = np.asarray(f.compute(x))
+    assert np.allclose(g.compute(x), 2.5 * fx)
+    assert np.allclose(h.compute(x), rs * fx)
+    assert np.allclose(k.compute(x), outs * np.asarray(f.compute(ins * x)))
+    # derivative consistency through the wrapper: J^T lam == adjoint grad
+    kx, jx, gx, hx = (np.asarray(a) for a in k.computeall(x, lam))
+    assert np.allclose(jx.T @ lam, gx, atol=1e-12)
+    # chain rule: J_k = diag(outs) J_f(ins*x) diag(ins)
+    jf = np.asarray(f.jacobian(ins * x))
+    assert np.allclose(jx, outs[:, None] * jf * ins[None, :], atol=1e-12)
+    _, jw = wrappers(jast.VectorFunctions)
+    for mine, ref in zip((g, h, k), jw):
+        for a, b in zip(mine.computeall(x, lam), ref.computeall(x, lam)):
+            assert np.allclose(np.asarray(a), np.asarray(b), rtol=TOL,
+                               atol=TOL)

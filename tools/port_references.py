@@ -31,6 +31,20 @@ prints the Dionysus transfer at 16 segments that
 iterations, final mass in kg, objective, and the trajectory rows of
 nodes 0, 8, 16, 24 and 32 -> `DIONYSUS_16`.
 
+    JAX_PLATFORMS=cpu python tools/port_references.py --examples \
+        [LABEL ...] [--size=test|--size=full]
+
+runs the JAX package's example scripts (`examples/`, loaded from their
+files by `JaxExamples`) through the entries of `chip_smoke.EXAMPLES`
+(all of them, or the labels given), at the JAX test's call and at phase
+21's full call, and prints for each every solve's flag and iterations,
+the objectives of the solves that optimize (null where one failed), the
+numbers its test cites and the seconds it took -> `EXAMPLES_JAX` in
+`chip_smoke.py` and `JAX_REFS` in the example mirrors.  All of them take
+about 100 minutes on an 8-core CPU (46 in three processes side by side); the
+two Betts transfers about 16 minutes each, Heteroclinic 8, everything
+else under 5.
+
     JAX_PLATFORMS=cpu python tools/port_references.py --porkchop-arrivals
 
 runs the whole 512 x 512 porkchop grid through Lambert and 16 chained
@@ -42,8 +56,10 @@ of the Sun, the lanes both packages miss, and the largest
 propagator nor Lambert solver) -> `PORKCHOP_ARRIVALS`.
 """
 
+import importlib.util
 import json
 import os
+import runpy
 import sys
 
 import jax
@@ -58,8 +74,9 @@ import numpy as np  # noqa: E402
 
 import asset_asrl_tpu as ast  # noqa: E402
 from asset_asrl_tpu.parallel import solve_ensemble  # noqa: E402
-from chip_smoke import (DIONYSUS_MASS, build_brachistochrone,  # noqa: E402
-                        build_cartpole, build_climb, build_dionysus,
+from chip_smoke import (DIONYSUS_MASS, EXAMPLES,  # noqa: E402
+                        build_brachistochrone, build_cartpole, build_climb,
+                        build_dionysus, run_example,
                         build_formation, build_multispacecraft,
                         conic_residuals, kepler_family, kepler_rows,
                         porkchop, porkchop_lanes)
@@ -137,6 +154,54 @@ def porkchop_arrivals(show):
     show("PORKCHOP_ARRIVALS", out)
 
 
+class JaxExamples:
+    """The JAX package's scripts under `examples/`, loaded from their
+    files: `module(name)` runs one's definitions, `main(name)` runs it as
+    a script and returns its globals.  `examples/` goes on sys.path, as
+    the JAX package's tests put it there: the MeshRefinement and
+    UpdatedInterface scripts import their base examples from it."""
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "examples")
+
+    def __init__(self):
+        if self.root not in sys.path:
+            sys.path.insert(0, self.root)
+
+    def path(self, name):
+        return os.path.join(self.root, *name.split(".")) + ".py"
+
+    def module(self, name):
+        spec = importlib.util.spec_from_file_location(
+            "jax_example_" + name.replace(".", "_"), self.path(name))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    def main(self, name):
+        return runpy.run_path(self.path(name), run_name="__main__")
+
+
+def example_refs(show, labels, sizes):
+    """The JAX package's run of each example of `labels` at each call of
+    `sizes` ("test": the JAX test's, "full": phase 21's)."""
+    ex = JaxExamples()
+    for label in labels:
+        spec = EXAMPLES[label]
+        for size in sizes:
+            call = spec.test if size == "test" else spec.full
+            if call is None or (size == "full" and spec.full is spec.test
+                                and "test" in sizes):
+                continue
+            cited, solves, secs = run_example(ast, ex, call)
+            show(f"{label} {size}", {
+                "flags": [s[0] for s in solves],
+                "iters": [s[1] for s in solves],
+                "objs": [s[2] if s[0] < 2 else None
+                         for s in solves if s[3]],
+                "cited": cited, "seconds": round(secs, 1),
+                "same_as_test": spec.full is spec.test})
+
+
 def main():
     full = "--all" in sys.argv[1:]
 
@@ -149,6 +214,13 @@ def main():
         return dionysus_16(show)
     if "--porkchop-arrivals" in sys.argv[1:]:
         return porkchop_arrivals(show)
+    if "--examples" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--examples") + 1:]
+        sizes = [a[7:] for a in rest if a.startswith("--size=")] \
+            or ["test", "full"]
+        labels = [a for a in rest if not a.startswith("--")] \
+            or list(EXAMPLES)
+        return example_refs(show, labels, sizes)
 
     show("FUSED Brachistochrone LGL3 24",
          solved(build_brachistochrone(ast, "LGL3", 24)))
