@@ -86,20 +86,23 @@ Phases, each of which ends the run with a non-zero exit on failure:
    at 256 segments a phase sharded (the wide reduced border), a 16-lane
    ensemble over a scenario mesh against no mesh, `Utils.Profiler`
    around one sharded factor, and K1 timed at the sharded launch shapes;
-21. the example suite: the scripts of `asset_asrl_torch/examples/` of
-   `EXAMPLE_SIZE` (20 of the 35 that solve a problem, those that fit
-   about 240 s), each called through its own entry (its function, or the
-   script run as `__main__`) at its published default call or its JAX
-   test's, held to the test's bounds and to the JAX package's flags and
-   objectives at the same call (`EXAMPLES_JAX`), with its time, peak
-   device memory and K1 launches; each script's own output goes to
-   `chiprun_out/examples/<name>.log`; K1 timed at the phase's widest and
-   largest launch shapes where they are new.
+21. the example suite: every script of `asset_asrl_torch/examples/` that
+   solves a problem (33 of the 36: the two Betts transfers, too long for
+   the limit after phases 1-20, and `MeshRefinement/Delta3Launch`, phase
+   13's solve, are named and skipped),
+   each called through its own entry (its function, or the script run as
+   `__main__`) at its published default call or, for the parking
+   problem, its JAX test's, held to the test's bounds and to the
+   JAX package's flags and objectives at the same call (`EXAMPLES_JAX`),
+   with its time, peak device memory and K1 launches.  The examples run
+   in `EXAMPLE_WORKERS` processes side by side on the card; each one's
+   own output goes to `chiprun_out/examples/<name>.log`; K1 timed at the
+   phase's widest and largest launch shapes where they are new.
 
     python3 chip_smoke.py --examples [--size=test] [NAME ...]
 
 builds K1 and runs phase 21 alone over every example (or the names
-given) at its full size (or its JAX test's): about 50 minutes for all.
+given) at its full size (or its JAX test's), the Betts transfers too.
 
 Phases 5 to 14 hold the port to the JAX package's host loop, so their
 problems run the port's host loop too (`UseFused = False`); phases 15 and
@@ -353,7 +356,10 @@ DIONYSUS_150 = (0, 52, 2715.9311712080384)
 # rounding (held to flag and bounds, not to the objective), `rounding`
 # a problem whose flags or objectives move in the JAX package itself when
 # its starting point moves by rounding (`tools/perturbed_examples.py`):
-# the flags it reaches and the relative spread of its objectives.
+# the flags it reaches and a limit just above the largest distance of an
+# objective from the JAX package's unperturbed run (relative; absolute
+# below 1) that 8-24 seeded runs of either package showed (`PERF.md`
+# section 6 gives the counts and the spreads).
 class PortExamples:
     """The port's copies: `module(name)` imports one,
     `main(name)` runs one as `python -m` would and returns its globals."""
@@ -392,10 +398,12 @@ def solve_log(ast):
 
 class Example:
     def __init__(self, module, test, full="test", bounds=(),
-                 adaptive=False, data=False, rounding=None):
+                 adaptive=False, data=False, rounding=None,
+                 args=(None, None)):
         self.module, self.test, self.bounds = module, test, bounds
         self.full = test if full == "test" else full
         self.adaptive, self.data, self.rounding = adaptive, data, rounding
+        self.args = dict(zip(("test", "full"), args))
 
 
 def _analytic(ex):
@@ -654,229 +662,235 @@ REENTRY_X = ("crossranges within 2e-3 rad of Betts' 0.59588 / 0.53462",
 DELTA3_M = ("final mass within 1 kg of 7529.7499",
             lambda c: abs(c["final_mass"] - 7529.7499) < 1.0)
 
-# in phase 21's order: the paths no earlier phase drives come first
+# in phase 21's order: the paths no earlier phase drives come first.
+# `args` says what each call passes: (the JAX test's, the full one's)
 EXAMPLES = {
-    "Heteroclinic": Example("Heteroclinic", _heteroclinic, bounds=[
-        ("connection DV under 10 m/s", lambda c: c["dv"] < 10.0)]),
-    "BettsLowThrust": Example("BettsLowThrust", _betts("BettsLowThrust"),
-                              bounds=[BETTS_W], adaptive=True),
+    "Heteroclinic": Example(
+        "Heteroclinic", _heteroclinic, bounds=[
+            ("connection DV under 10 m/s", lambda c: c["dv"] < 10.0)],
+        args=("main()", "main() (nman=40)")),
+    "BettsLowThrust": Example(
+        "BettsLowThrust", _betts("BettsLowThrust"), bounds=[BETTS_W],
+        adaptive=True, args=("run()", "run() (16 segments, adaptive)")),
     "MeshRefinement.Reentry": Example(
         "MeshRefinement.Reentry", None, _reentry_mesh, bounds=[REENTRY_X],
-        adaptive=True),
+        adaptive=True, args=(None, "run() (40 segments, adaptive)")),
     "OptimalDocking": Example(
         "OptimalDocking", _docking(96), _docking(192), bounds=[
             ("final time in (120, 260) s",
-             lambda c: 120 < c["final_time"] < 260)]),
+             lambda c: 120 < c["final_time"] < 260)],
+        args=("Form2(nsegs=96)", "Form2() (192 segments)")),
     # two local optima 1.4e-5 apart; either package reaches either
     "ParallelParking": Example(
         "ParallelParking", _parking(40, 80), _parking(50, 150), bounds=[
             ("maneuver time within 0.4 s of 18.426 s",
              lambda c: abs(c["time"] - 18.426) < 0.4)],
-        rounding=({0, 1}, 2e-5)),
-    "HangingChain": Example("HangingChain", _hanging(48), _hanging(100),
-                            bounds=[("3 of 4 chains converge",
-                                     lambda c: c["converged"] >= 3),
-                                    ("anchors held to 1e-6",
-                                     lambda c: c["anchors"] < 1e-6),
-                                    ("long chains sag below anchor a",
-                                     lambda c: c["sag"] < 0.0)],
-                            rounding=({0, 2}, 1e-5)),
-    "OrbitContinuation": Example("OrbitContinuation", _lyapunov, bounds=[
-        ("3 orbits at least", lambda c: c["orbits"] >= 3),
-        ("first and last orbit periodic to 1e-8",
-         lambda c: c["periodicity"] < 1e-8)]),
-    "GoddardRocket": Example("GoddardRocket", None, _goddard, bounds=[
-        ("final altitudes within 20 ft of 18727.8 ft",
-         lambda c: abs(c["h_single"] - 18727.8) < 20
-         and abs(c["h_three"] - 18727.8) < 20)]),
-    "MultiPhaseCannon": Example("MultiPhaseCannon", None, _cannon, bounds=[
-        ("range within 25 m of 3280.2 m",
-         lambda c: abs(c["range"] - 3280.2) < 25),
-        ("radius within 5 mm of 4.195 cm",
-         lambda c: abs(c["radius"] - 0.04195) < 5e-3),
-        ("ODE parameter linked to 1e-10", lambda c: c["param_link"] < 1e-10)]),
+        rounding=({0, 1}, 1.5e-5),
+        args=("Main(nsegs1=40, nsegs2=80)", "Main() (50 and 150 segments)")),
+    "HangingChain": Example(
+        "HangingChain", _hanging(48), _hanging(100), bounds=[
+            ("3 of 4 chains converge", lambda c: c["converged"] >= 3),
+            ("anchors held to 1e-6", lambda c: c["anchors"] < 1e-6),
+            ("long chains sag below anchor a", lambda c: c["sag"] < 0.0)],
+        rounding=({0, 2}, 9e-6),
+        args=("run(n=48, Ls=4 lengths)", "run(n=100, Ls=4 lengths)")),
+    "OrbitContinuation": Example(
+        "OrbitContinuation", _lyapunov, bounds=[
+            ("3 orbits at least", lambda c: c["orbits"] >= 3),
+            ("first and last orbit periodic to 1e-8",
+             lambda c: c["periodicity"] < 1e-8)],
+        args=("lyapunov_family(dx=-0.02, lim=0.76)",) * 2),
+    "GoddardRocket": Example(
+        "GoddardRocket", None, _goddard, bounds=[
+            ("final altitudes within 20 ft of 18727.8 ft",
+             lambda c: abs(c["h_single"] - 18727.8) < 20
+             and abs(c["h_three"] - 18727.8) < 20)],
+        args=(None, "__main__ (single and 3-phase)")),
+    "MultiPhaseCannon": Example(
+        "MultiPhaseCannon", None, _cannon, bounds=[
+            ("range within 25 m of 3280.2 m",
+             lambda c: abs(c["range"] - 3280.2) < 25),
+            ("radius within 5 mm of 4.195 cm",
+             lambda c: abs(c["radius"] - 0.04195) < 5e-3),
+            ("ODE parameter linked to 1e-10",
+             lambda c: c["param_link"] < 1e-10)],
+        args=(None, "__main__ (96 LGL5 segments a phase)")),
     "TopputtoLowThrust": Example(
         "TopputtoLowThrust", _topputto(150), _topputto(200), bounds=[
             ("time-optimal tof within 1 of 55.55",
              lambda c: abs(c["tof"] - 55.55) < 1.0),
             ("fuel-optimal tof within 3 of 115.8, ends coasting",
              lambda c: abs(c["tof_mass"] - 115.8) < 3.0
-             and c["throttle"] < 0.01)], rounding=({0}, 3e-4)),
+             and c["throttle"] < 0.01)],
+        rounding=({0}, 1e-4),
+        args=("run(nsegs=150)", "run() (200 segments)")),
     "SimpleLowThrust": Example(
         "SimpleLowThrust", _simple_lt(64), _simple_lt(128), bounds=[
             ("tof within 0.3 of 18.27",
-             lambda c: abs(c["tof"] - 18.27) < 0.3)]),
-    "FreeFlyingRobot": Example("FreeFlyingRobot", _robot, bounds=[
-        ("objective within 0.05 of 7.910",
-         lambda c: abs(c["objective"] - 7.910) < 0.05)]),
-    "MountainCar": Example("MountainCar", _mountain, bounds=[
-        ("escape time within 3 of 103",
-         lambda c: abs(c["time"] - 103.0) < 3.0)],
-        rounding=({0, 1}, 1e-2)),
-    "BikeObstacle": Example("BikeObstacle", _bike, bounds=[
-        ("transit time in (4.8, 5.3) s", lambda c: 4.8 < c["time"] < 5.3),
-        ("obstacle margin above 7.49", lambda c: c["clearance"] > 7.49)]),
+             lambda c: abs(c["tof"] - 18.27) < 0.3)],
+        args=("run(nsegs=64)", "run() (128 segments)")),
+    "FreeFlyingRobot": Example(
+        "FreeFlyingRobot", _robot, bounds=[
+            ("objective within 0.05 of 7.910",
+             lambda c: abs(c["objective"] - 7.910) < 0.05)],
+        args=("run()", "run() (128 segments)")),
+    "MountainCar": Example(
+        "MountainCar", _mountain, bounds=[
+            ("escape time within 3 of 103",
+             lambda c: abs(c["time"] - 103.0) < 3.0)],
+        rounding=({0, 1}, 8.5e-3), args=("run()", "run() (128 segments)")),
+    "BikeObstacle": Example(
+        "BikeObstacle", _bike, bounds=[
+            ("transit time in (4.8, 5.3) s",
+             lambda c: 4.8 < c["time"] < 5.3),
+            ("obstacle margin above 7.49",
+             lambda c: c["clearance"] > 7.49)],
+        args=("run()", "run() (128 segments)")),
     "UpdatedInterface.BettsLowThrust": Example(
         "UpdatedInterface.BettsLowThrust",
         _betts("UpdatedInterface.BettsLowThrust"), bounds=[BETTS_W],
-        adaptive=True),
+        adaptive=True, args=("run()", "run() (16 segments, adaptive)")),
     "UpdatedInterface.Reentry": Example(
         "UpdatedInterface.Reentry", _ui_reentry, bounds=[
             ("crossrange within 2e-3 rad of Betts' 0.59588",
-             lambda c: abs(c["crossrange"] - 0.5958800738629952) < 2e-3)]),
+             lambda c: abs(c["crossrange"] - 0.5958800738629952) < 2e-3)],
+        args=("run()", "run() (40 then 200 segments)")),
     "UpdatedInterface.Delta3Launch": Example(
         "UpdatedInterface.Delta3Launch", _ui_delta3, bounds=[DELTA3_M],
-        adaptive=True),
+        adaptive=True, args=("build_ocp() + solve_optimize()",) * 2),
     "UpdatedInterface.GoddardRocket": Example(
         "UpdatedInterface.GoddardRocket", _ui_goddard, bounds=[
             ("altitude within 30 ft of 18728 ft",
              lambda c: abs(c["h_single"] - 18728.0) < 30.0),
             ("single and 3-phase within 0.5 ft",
-             lambda c: abs(c["h_single"] - c["h_three"]) < 0.5)]),
+             lambda c: abs(c["h_single"] - c["h_three"]) < 0.5)],
+        args=("run()",) * 2),
     "UpdatedInterface.MultiPhaseCannon": Example(
         "UpdatedInterface.MultiPhaseCannon", _ui_cannon, bounds=[
             ("range within 0.05 km of 3.280 km",
              lambda c: abs(c["range"] - 3.280) < 0.05),
-            ("lands at h = 0 to 1e-8", lambda c: c["landing_h"] < 1e-8)]),
+            ("lands at h = 0 to 1e-8", lambda c: c["landing_h"] < 1e-8)],
+        args=("run()",) * 2),
     "UpdatedInterface.MinimumTimeToClimb": Example(
         "UpdatedInterface.MinimumTimeToClimb",
-        _climb("UpdatedInterface.MinimumTimeToClimb"), bounds=[CLIMB_T]),
+        _climb("UpdatedInterface.MinimumTimeToClimb"), bounds=[CLIMB_T],
+        args=("solve()", "solve() (50 segments)")),
     "UpdatedInterface.MinimumTimeToClimbTables": Example(
         "UpdatedInterface.MinimumTimeToClimbTables", None, None, data=True),
-    "AnalyticExample": Example("AnalyticExample", _analytic, bounds=[
-        ("control error under 5e-3", lambda c: c["uerr"] < 5e-3),
-        ("costate error under 5e-2", lambda c: c["lerr"] < 5e-2)]),
-    "BrysonDenham": Example("BrysonDenham", _bryson, bounds=[
-        ("objective within 1e-2 of 4", lambda c: abs(c["objective"] - 4.0)
-         < 1e-2)]),
-    "VanDerPol": Example("VanDerPol", None, _vanderpol, bounds=[
-        ("objective within 0.1 of 2.87",
-         lambda c: abs(c["objective"] - 2.87) < 0.1)]),
+    "AnalyticExample": Example(
+        "AnalyticExample", _analytic, bounds=[
+            ("control error under 5e-3", lambda c: c["uerr"] < 5e-3),
+            ("costate error under 5e-2", lambda c: c["lerr"] < 5e-2)],
+        args=("run()", "run() (20 segments)")),
+    "BrysonDenham": Example(
+        "BrysonDenham", _bryson, bounds=[
+            ("objective within 1e-2 of 4",
+             lambda c: abs(c["objective"] - 4.0) < 1e-2)],
+        args=("run()", "run() (32 segments)")),
+    "VanDerPol": Example(
+        "VanDerPol", None, _vanderpol, bounds=[
+            ("objective within 0.1 of 2.87",
+             lambda c: abs(c["objective"] - 2.87) < 0.1)],
+        args=(None, "__main__ (128 segments)")),
     # at the script's default tolerance (1e-12) a solve ends CONVERGED or
     # ACCEPTABLE at the same optimum, as rounding has it
-    "Zermelo": Example("Zermelo", _zermelo_test, _zermelo_full, rounding=(
-        {0, 1}, 0.0), bounds=[
-        ("no-wind time sqrt(5) to 1e-6",
-         lambda c: abs(c.get("time", c.get("time_1")) - np.sqrt(5.0))
-         < 1e-6),
-        ("wind times in (0, 10)", lambda c: all(
-            0 < v < 10 for k, v in c.items() if k[-1] in "234"))]),
-    "ZermeloWinds": Example("Zermelo", _zermelo_winds, None, bounds=[
-        ("wind times in (0, 10)", lambda c: 0 < c["time_uniform"] < 10
-         and 0 < c["time_variable"] < 10)]),
+    "Zermelo": Example(
+        "Zermelo", _zermelo_test, _zermelo_full, bounds=[
+            ("no-wind time sqrt(5) to 1e-6",
+             lambda c: abs(c.get("time", c.get("time_1")) - np.sqrt(5.0))
+             < 1e-6),
+            ("wind times in (0, 10)", lambda c: all(
+                0 < v < 10 for k, v in c.items() if k[-1] in "234"))],
+        rounding=({0, 1}, 0.0),
+        args=("navigate(no wind, nseg=48)", "__main__ (four winds)")),
+    "ZermeloWinds": Example(
+        "Zermelo", _zermelo_winds, None, bounds=[
+            ("wind times in (0, 10)", lambda c: 0 < c["time_uniform"] < 10
+             and 0 < c["time_variable"] < 10)],
+        args=("navigate(two winds, nseg=64)", None)),
     # the script's own run: its first wind ends CONVERGED or ACCEPTABLE at
     # the same optimum, the other two DIVERGE in both packages
     "MultiPhaseZermelo": Example(
-        "MultiPhaseZermelo", _mpzermelo_test, _mpzermelo_full,
-        rounding=({0, 1, 3}, 0.0), bounds=[
+        "MultiPhaseZermelo", _mpzermelo_test, _mpzermelo_full, bounds=[
             ("total time within 0.05 of 3.2356 (test call)",
              lambda c: "waypoints" not in c
              or abs(c["time"] - 3.2356) < 0.05),
             ("waypoints hit, time continuous to 1e-6",
-             lambda c: c.get("waypoints", 0.0) < 1e-6)]),
+             lambda c: c.get("waypoints", 0.0) < 1e-6)],
+        rounding=({0, 1, 3}, 0.0),
+        args=("navigate(3 points, vM=2.5)",
+              "__main__ (4 points, three winds)")),
     "MeshRefinement.CartPole": Example(
         "MeshRefinement.CartPole", None, _cartpole_mesh, bounds=[
             ("objective within 0.1 of 58.83 (tests/test_fullproblems.py)",
              lambda c: abs(c["objective"] - 58.83219229674185) < 0.1)],
-        adaptive=True),
+        adaptive=True, args=(None, "run() (20 segments, adaptive)")),
     "MeshRefinement.HyperSensLong": Example(
         "MeshRefinement.HyperSensLong", None,
         _hypersens("MeshRefinement.HyperSensLong", False), bounds=[
             ("mesh converged", lambda c: c["mesh_converged"] == 1.0)],
-        adaptive=True),
+        adaptive=True, args=(None, "run() (50 segments, adaptive)")),
     "MeshRefinement.Delta3Launch": Example(
         "MeshRefinement.Delta3Launch", None, None),
     # solved at full size by earlier phases: once here, at the test's size
-    "CartPole": Example("CartPole", None, _cartpole, bounds=[
-        ("objective within 0.1 of 58.83",
-         lambda c: abs(c["objective"] - 58.83219229674185) < 0.1)]),
-    "Brachistochrone": Example("Brachistochrone", None, _brachistochrone,
-                               bounds=[("time within 1e-3 of 1.8013",
-                                        lambda c: abs(c["time"] - 1.8013)
-                                        < 1e-3)]),
-    "Delta3Launch": Example("Delta3Launch", None, _delta3, bounds=[DELTA3_M]),
-    "HyperSens": Example("HyperSens", None, _hypersens("HyperSens", True),
-                         bounds=[("mesh converged",
-                                  lambda c: c["mesh_converged"] == 1.0)],
-                         adaptive=True),
+    "CartPole": Example(
+        "CartPole", None, _cartpole, bounds=[
+            ("objective within 0.1 of 58.83",
+             lambda c: abs(c["objective"] - 58.83219229674185) < 0.1)],
+        args=(None, "__main__ (64 segments)")),
+    "Brachistochrone": Example(
+        "Brachistochrone", None, _brachistochrone, bounds=[
+            ("time within 1e-3 of 1.8013",
+             lambda c: abs(c["time"] - 1.8013) < 1e-3)],
+        args=(None, "__main__ (32 segments)")),
+    "Delta3Launch": Example(
+        "Delta3Launch", None, _delta3, bounds=[DELTA3_M],
+        args=(None, "__main__ (40 segments a phase)")),
+    "HyperSens": Example(
+        "HyperSens", None, _hypersens("HyperSens", True), bounds=[
+            ("mesh converged", lambda c: c["mesh_converged"] == 1.0)],
+        adaptive=True, args=(None, "__main__ (10 segments, adaptive)")),
     "MultiSpacecraftOptimization": Example(
         "MultiSpacecraftOptimization", None, _msc, bounds=[
             ("every one of 64 scenarios converges",
-             lambda c: c["converged"] == 64)]),
-    "MinimumTimeToClimb": Example("MinimumTimeToClimb",
-                                  _climb("MinimumTimeToClimb"),
-                                  bounds=[CLIMB_T]),
-    "MinimumTimeToClimbTables": Example("MinimumTimeToClimbTables", None,
-                                        None, data=True),
-    "DionysusLowThrust": Example("DionysusLowThrust", _dionysus, bounds=[
-        ("final mass above 2700 kg", lambda c: c["final_mass"] > 2700)]),
-    "Reentry": Example("Reentry", _reentry, bounds=[REENTRY_X]),
+             lambda c: c["converged"] == 64)],
+        args=(None, "ensemble_demo() (64 scenarios)")),
+    "MinimumTimeToClimb": Example(
+        "MinimumTimeToClimb", _climb("MinimumTimeToClimb"),
+        bounds=[CLIMB_T], args=("solve(nsegs=50)",) * 2),
+    "MinimumTimeToClimbTables": Example(
+        "MinimumTimeToClimbTables", None, None, data=True),
+    "DionysusLowThrust": Example(
+        "DionysusLowThrust", _dionysus, bounds=[
+            ("final mass above 2700 kg", lambda c: c["final_mass"] > 2700)],
+        args=("run(nsegs=150)",) * 2),
+    "Reentry": Example(
+        "Reentry", _reentry, bounds=[REENTRY_X],
+        args=("run_reentry(nsegs=40)",) * 2),
 }
 
-
-# What each call of `EXAMPLES` passes: (the JAX test's, phase 21's full)
-EXAMPLE_ARGS = {
-    "Heteroclinic": ("main()", "main() (nman=40)"),
-    "BettsLowThrust": ("run()", "run() (16 segments, adaptive)"),
-    "MeshRefinement.Reentry": (None, "run() (40 segments, adaptive)"),
-    "OptimalDocking": ("Form2(nsegs=96)", "Form2() (192 segments)"),
-    "ParallelParking": ("Main(nsegs1=40, nsegs2=80)",
-                        "Main() (50 and 150 segments)"),
-    "HangingChain": ("run(n=48, Ls=4 lengths)", "run(n=100, Ls=4 lengths)"),
-    "OrbitContinuation": ("lyapunov_family(dx=-0.02, lim=0.76)",
-                          "lyapunov_family(dx=-0.02, lim=0.76)"),
-    "GoddardRocket": (None, "__main__ (single and 3-phase)"),
-    "MultiPhaseCannon": (None, "__main__ (96 LGL5 segments a phase)"),
-    "TopputtoLowThrust": ("run(nsegs=150)", "run() (200 segments)"),
-    "SimpleLowThrust": ("run(nsegs=64)", "run() (128 segments)"),
-    "FreeFlyingRobot": ("run()", "run() (128 segments)"),
-    "MountainCar": ("run()", "run() (128 segments)"),
-    "BikeObstacle": ("run()", "run() (128 segments)"),
-    "UpdatedInterface.BettsLowThrust": ("run()",
-                                        "run() (16 segments, adaptive)"),
-    "UpdatedInterface.Reentry": ("run()", "run() (40 then 200 segments)"),
-    "UpdatedInterface.Delta3Launch": ("build_ocp() + solve_optimize()",
-                                      "build_ocp() + solve_optimize()"),
-    "UpdatedInterface.GoddardRocket": ("run()", "run()"),
-    "UpdatedInterface.MultiPhaseCannon": ("run()", "run()"),
-    "UpdatedInterface.MinimumTimeToClimb": ("solve()",
-                                            "solve() (50 segments)"),
-    "AnalyticExample": ("run()", "run() (20 segments)"),
-    "BrysonDenham": ("run()", "run() (32 segments)"),
-    "VanDerPol": (None, "__main__ (128 segments)"),
-    "Zermelo": ("navigate(no wind, nseg=48)", "__main__ (four winds)"),
-    "ZermeloWinds": ("navigate(two winds, nseg=64)", None),
-    "MultiPhaseZermelo": ("navigate(3 points, vM=2.5)",
-                          "__main__ (4 points, three winds)"),
-    "MeshRefinement.CartPole": (None, "run() (20 segments, adaptive)"),
-    "MeshRefinement.HyperSensLong": (None, "run() (50 segments, adaptive)"),
-    "CartPole": (None, "__main__ (64 segments)"),
-    "Brachistochrone": (None, "__main__ (32 segments)"),
-    "Delta3Launch": (None, "__main__ (40 segments a phase)"),
-    "HyperSens": (None, "__main__ (10 segments, adaptive)"),
-    "MultiSpacecraftOptimization": (None, "ensemble_demo() (64 scenarios)"),
-    "MinimumTimeToClimb": ("solve(nsegs=50)", "solve(nsegs=50)"),
-    "DionysusLowThrust": ("run(nsegs=150)", "run(nsegs=150)"),
-    "Reentry": ("run_reentry(nsegs=40)", "run_reentry(nsegs=40)"),
-}
-# The examples phase 21 runs, and at which size ("full" or "test"):
-# about 240 s on an H100 80GB HBM3 at 700.00 W, so that the whole script
-# stays near 15 minutes.  The others take 2-12 minutes each there (their
-# time is the host's: `PERF.md` section 6) and run in
-# `python3 chip_smoke.py --examples`, which runs every one.
-EXAMPLE_SIZE = {
-    "MeshRefinement.Reentry": "full", "HangingChain": "full",
-    "OrbitContinuation": "full", "GoddardRocket": "full",
-    "MultiPhaseCannon": "full", "SimpleLowThrust": "full",
-    "FreeFlyingRobot": "full", "MountainCar": "full", "BikeObstacle": "full",
-    "UpdatedInterface.MultiPhaseCannon": "full", "AnalyticExample": "full",
-    "BrysonDenham": "full", "VanDerPol": "full", "Zermelo": "full",
-    "MultiPhaseZermelo": "test", "MeshRefinement.CartPole": "full",
-    "MeshRefinement.HyperSensLong": "full", "CartPole": "full",
-    "Brachistochrone": "full", "MultiSpacecraftOptimization": "full"}
-EXAMPLE_SKIP = {"MeshRefinement.Delta3Launch": "the adaptive Delta III of "
-                "phase 13 (40 segments a phase, deboor) is the same solve",
-                "ZermeloWinds": "its two winds are two of Zermelo's four"}
+# Phase 21 runs every example that solves a problem at its full call but
+# those of `EXAMPLE_AT_TEST`, which run at their JAX test's, and those of
+# `EXAMPLE_SKIP`, which it names with the reason.  It runs them in
+# `EXAMPLE_WORKERS` processes side by side on the one card (their time is
+# the host's, one core each: `PERF.md` section 6), so that its longest
+# example sets its time: the docking problem, 293-351 s on an H100 80GB
+# HBM3 at 700.00 W at either size (its JAX test's 96 segments take more
+# iterations than the full 192).  The parking problem takes 339 s there
+# alone at full size, 486 s beside five others, 290 s at its test's; the
+# Betts transfers 637-780 s.  `python3 chip_smoke.py --examples` runs
+# every one at full size.
+EXAMPLE_WORKERS = 6
+EXAMPLE_AT_TEST = {"ParallelParking"}
+EXAMPLE_SKIP = {
+    "BettsLowThrust": "728-780 s on the card (its integrator's host "
+    "loop), more than the limit leaves after phases 1-20; `python3 "
+    "chip_smoke.py --examples BettsLowThrust` runs it",
+    "UpdatedInterface.BettsLowThrust": "637-732 s on the card, as the "
+    "base Betts transfer; `--examples` runs it",
+    "MeshRefinement.Delta3Launch": "the adaptive Delta III of phase 13 "
+    "(40 segments a phase, deboor) is the same solve",
+    "ZermeloWinds": "its two winds are two of Zermelo's four"}
 
 # The JAX package's run of each example (`python tools/port_references.py
 # --examples`; x64, CPU) at its JAX test's call ("test") and at phase
@@ -2913,14 +2927,16 @@ def shape_counts(shapes):
     return sorted(counts.items(), key=lambda kv: (-kv[0][0], kv[0][1]))
 
 
-def example_held(ast, label, ref, tol=1e-8, size="test", ex=None):
-    """One call of an example (`size`: its JAX test's or phase 21's) from
-    `ex` (the port's copies by default), held to its test's bounds and to
-    `ref` (`example_faults`); returns (cited numbers, solves)."""
+def example_held(ast, label, size="test", tol=1e-8, ex=None):
+    """One call of an example (`size`: its JAX test's or its full one)
+    from `ex` (the port's copies by default), held to its test's bounds
+    and to the JAX package's run of that call (`EXAMPLES_JAX`,
+    `example_faults`); returns (cited numbers, solves)."""
     spec = EXAMPLES[label]
     call = spec.test if size == "test" else spec.full
     cited, solves, _ = run_example(ast, ex or PortExamples(), call)
-    bad = example_faults(spec, cited, solves, ref, tol)
+    bad = example_faults(spec, cited, solves,
+                         EXAMPLES_JAX[f"{label} {size}"], tol)
     check(not bad, f"{label}: {bad}")
     return cited, solves
 
@@ -2943,52 +2959,101 @@ def example_shapes(shapes, timed):
     return list(dict.fromkeys(pick))
 
 
-def phase_examples(ast, ck, kb, logdir, plan=None):
+def example_plan():
+    """Phase 21's examples by label, each at its size ("full" or "test")."""
+    return {label: "test" if label in EXAMPLE_AT_TEST or spec.full is None
+            else "full" for label, spec in EXAMPLES.items()
+            if not spec.data and label not in EXAMPLE_SKIP}
+
+
+def example_worker():
+    """A worker process of phase 21: one core's worth of host threads."""
+    torch.set_num_threads(1)
+    os.environ.setdefault("MPLBACKEND", "Agg")   # the scripts' plots
+
+
+def example_job(label, size, logdir):
+    """One example of phase 21 in a worker process, its output going to
+    `logdir/<label>.log`: its cited numbers, solves, seconds, peak device
+    memory, K1 launches (narrow, wide) and their (K, W)."""
+    import contextlib as cl
+    import asset_asrl_torch as ast
+    from asset_asrl_torch.Solvers import cuda_kernels as ck
+    from asset_asrl_torch.Solvers import kkt_block as kb
+    spec = EXAMPLES[label]
+    call = spec.full if size == "full" else spec.test
+    reset_peak_memory()
+    with k1_log(kb) as shapes, \
+            open(os.path.join(logdir, label + ".log"), "w") as log, \
+            cl.redirect_stdout(log):
+        (cited, solves, _), n1, nw, secs = counted(
+            ck, lambda: run_example(ast, PortExamples(), call))
+    return dict(cited=cited, solves=solves, secs=secs, n1=n1, nw=nw,
+                peak=torch.cuda.max_memory_allocated(), shapes=shapes)
+
+
+def phase_examples(logdir, plan=None):
     """Phase 21: the example suite.  Every script of
     `asset_asrl_torch/examples/` that solves a problem is called on the
-    card through its own entry, at the size of `plan` (`EXAMPLE_SIZE`
-    unless given), each example's output going to `logdir/<name>.log`;
-    each is held to its
-    JAX test's bounds and to the JAX package's flags and objectives at
-    the same call (`EXAMPLES_JAX`, 1e-6 relative; an adaptive run to its
-    last flag), and must launch K1.  Returns each example's K1 launches
-    and the launch shapes of the whole phase."""
-    import contextlib as cl
-    os.environ.setdefault("MPLBACKEND", "Agg")   # the scripts' plots
+    card through its own entry, at the size of `plan` (`example_plan()`
+    unless given), in `EXAMPLE_WORKERS` processes side by side, in
+    `EXAMPLES`' order; each is held to its JAX test's bounds and to the
+    JAX package's flags and objectives at the same call (`EXAMPLES_JAX`,
+    1e-6 relative; an adaptive run to its last flag), and must launch K1.
+    Returns each example's K1 launches and the launch shapes of the
+    whole phase."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import traceback
+    plan = plan or example_plan()
     os.makedirs(logdir, exist_ok=True)
-    ex, launched, faults = PortExamples(), {}, []
-    with k1_log(kb) as shapes:
-        for label, spec in EXAMPLES.items():
-            if spec.data:
-                mod = ex.module(spec.module)
-                print(f"[{label}] data only: {len(vars(mod))} names")
+    launched, shapes, faults, done = {}, [], [], {}
+    for label, spec in EXAMPLES.items():
+        if spec.data:
+            mod = PortExamples().module(spec.module)
+            print(f"[{label}] data only: {len(vars(mod))} names")
+        elif label not in plan:
+            print(f"[{label}] not run: " + EXAMPLE_SKIP.get(
+                label, "`python3 chip_smoke.py --examples` runs it"))
+    t0 = time.perf_counter()
+    with cf.ProcessPoolExecutor(EXAMPLE_WORKERS, mp.get_context("spawn"),
+                                initializer=example_worker) as pool:
+        jobs = {pool.submit(example_job, label, size, logdir): label
+                for label, size in plan.items()}
+        for job in cf.as_completed(jobs):
+            label = jobs[job]
+            spec, size = EXAMPLES[label], plan[label]
+            try:
+                r = done[label] = job.result()
+            except Exception as e:
+                print("".join(traceback.format_exception(e)), flush=True)
+                faults.append(f"{label}: {e!r}")
                 continue
-            size = (plan or EXAMPLE_SIZE).get(label)
-            if size is None:
-                print(f"[{label}] not run: " + EXAMPLE_SKIP.get(
-                    label, "`python3 chip_smoke.py --examples` runs it"))
-                continue
-            call = spec.full if size == "full" else spec.test
-            reset_peak_memory()
-            with open(os.path.join(logdir, label + ".log"), "w") as log, \
-                    cl.redirect_stdout(log):
-                (cited, solves, _), n1, nw, secs = counted(
-                    ck, lambda: run_example(ast, ex, call))
-            peak = torch.cuda.max_memory_allocated()
-            its = sum(s[1] for s in solves)
-            print(f"[{label}] {EXAMPLE_ARGS[label][size == 'full']}: flags "
+            solves, secs = r["solves"], r["secs"]
+            print(f"[{label}] {spec.args[size]}: flags "
                   f"{[s[0] for s in solves]}, iterations "
                   f"{[s[1] for s in solves]}, objective "
-                  f"{[s[2] for s in solves if s[3]][-1:]}, cited {cited}; "
-                  f"{secs:.3f} s, {its / secs:.2f} iterations/s, peak "
-                  f"device memory {peak / 2**20:.1f} MiB, K1 launches "
-                  f"{n1} narrow / {nw} wide", flush=True)
-            bad = example_faults(spec, cited, solves,
+                  f"{[s[2] for s in solves if s[3]][-1:]}, cited "
+                  f"{r['cited']}; {secs:.3f} s, "
+                  f"{sum(s[1] for s in solves) / secs:.2f} iterations/s, "
+                  f"peak device memory {r['peak'] / 2**20:.1f} MiB, K1 "
+                  f"launches {r['n1']} narrow / {r['nw']} wide; ended "
+                  f"{time.perf_counter() - t0:.1f} s into the phase",
+                  flush=True)
+            bad = example_faults(spec, r["cited"], solves,
                                  EXAMPLES_JAX[f"{label} {size}"])
-            if n1 + nw == 0:
+            if r["n1"] + r["nw"] == 0:
                 bad.append("never launched K1")
             faults += [f"{label}: {b}" for b in bad]
-            launched[f"example {label}"] = (n1, nw)
+    for label in plan:
+        if label in done:
+            launched[f"example {label}"] = (done[label]["n1"],
+                                            done[label]["nw"])
+            shapes += done[label]["shapes"]
+    print(f"phase 21: {len(done)} of {len(plan)} examples in "
+          f"{EXAMPLE_WORKERS} processes, {time.perf_counter() - t0:.1f} s; "
+          f"their own times add up to "
+          f"{sum(r['secs'] for r in done.values()):.1f} s")
     if shapes:
         print(f"K1 launch shapes (K, W) of the phase: {len(shapes)} launches, "
               f"widest {max(shapes, key=lambda s: (s[1], s[0]))}, largest "
@@ -3248,7 +3313,7 @@ def main(argv=()):
                           "chiprun_out", "examples")
     if "--examples" in argv:
         t0 = time.perf_counter()
-        phase_examples(ast, ck, kb, logdir, sweep_plan(
+        phase_examples(logdir, sweep_plan(
             argv[argv.index("--examples") + 1:]))
         print(f"example sweep: {time.perf_counter() - t0:.1f} s")
         print(smi)
@@ -3283,7 +3348,7 @@ def main(argv=()):
     k1.update(time_k1_at(ck, sharded_shapes(shapes), seed=300))
     print(f"phase_distribution: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launched, shapes = phase_examples(ast, ck, kb, logdir)
+    launched, shapes = phase_examples(logdir)
     adaptive.update(launched)
     k1.update(time_k1_at(ck, example_shapes(shapes, K1_TIMED), seed=400))
     print(f"phase_examples: {time.perf_counter() - t0:.1f} s")

@@ -4,15 +4,15 @@ raising is in `test_torch_examples_fast_lowthrust.py`, a file of its own
 so that test workers can take it apart from these).
 
 Each is also held to the JAX package's run of the same script at the
-same arguments (`JAX_REFS`, from `python tools/port_references.py
---examples`): every solve's flag, and the objective of every solve that
-optimizes to 1e-8 relative (absolute below 1).  Iteration counts are not
-held: several of these problems turn on rounding (ROADMAP queue 3).  An
-adaptive run is held to its last flag, and one that
-`chip_smoke.EXAMPLES` marks with `rounding` to the flags and the spread
-that the JAX package itself shows when its starting point moves by 1e-10
-(`tools/perturbed_examples.py`).  The `slow` test runs the JAX scripts
-here and holds the constants to them.
+same arguments (`chip_smoke.EXAMPLES_JAX`, from `python
+tools/port_references.py --examples`): every solve's flag, and the
+objective of every solve that optimizes to 1e-8 relative (absolute below
+1).  Iteration counts are not held: several of these problems turn on
+rounding (ROADMAP queue 3).  An adaptive run is held to its last flag,
+and one that `chip_smoke.EXAMPLES` marks with `rounding` to the flags
+and the spread that the JAX package itself shows when its starting point
+moves by 1e-10 (`tools/perturbed_examples.py`).
+`test_torch_examples_jax.py` holds those constants to the JAX scripts.
 
 The parking, docking, heteroclinic and Betts mirrors take minutes on
 the CPU (the Betts transfer 12) and are `slow` too."""
@@ -28,31 +28,18 @@ torch.set_num_threads(2)
 tast.config.use_device("cpu")
 
 CONVERGED = 0
-# The JAX package's run of each example at the JAX test's arguments
-# (x64, CPU): every solve's flag, the objectives of those that optimize
-JAX_REFS = {
-    'MultiPhaseZermelo': ([0], [3.235604395235786]),
-    'DionysusLowThrust': ([0], [-0.6789827928020096]),
-    'ParallelParking': ([0, 0], [18.422147433095375, 18.34973278259271]),
-    'OptimalDocking': ([0], [5.736996504937732]),
-    'Heteroclinic': ([0, 0, 0], [2.461776832771027e-09]),
-    'BettsLowThrust':
-        ([0, 0, 0], [-0.2184659932577457, -0.220364803226086,
-        -0.22036684595538925]),
-}
 
 
 def solved(label):
     """The port's run of one example at its JAX test's arguments, held to
-    `JAX_REFS`; the numbers the test cites."""
-    return example_held(tast, label, JAX_REFS[label])[0]
+    the JAX package's; the numbers the test cites."""
+    return example_held(tast, label)[0]
 
 
 def test_multiphase_zermelo():
     """Two linked legs under an adverse uniform wind: total time 3.2356,
     waypoints hit, time chained continuously."""
-    c, solves = example_held(tast, "MultiPhaseZermelo",
-                             JAX_REFS["MultiPhaseZermelo"])
+    c, solves = example_held(tast, "MultiPhaseZermelo")
     assert [s[0] for s in solves] == [CONVERGED], solves
     assert abs(c["time"] - 3.2356) < 0.05, c
     assert c["waypoints"] < 1e-6, c
@@ -97,13 +84,3 @@ def test_betts_low_thrust():
     objective.  About 12 min on an 8-core CPU (the integrator)."""
     c = solved("BettsLowThrust")
     assert abs(c["final_weight"] - 0.220179) < 2e-4, c
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("label", sorted(JAX_REFS))
-def test_references_are_the_jax_runs(label):
-    """The JAX package's script at the same arguments gives `JAX_REFS`
-    (flags equal, objectives to 1e-9 relative)."""
-    import asset_asrl_tpu as jast
-    from tools.port_references import JaxExamples
-    example_held(jast, label, JAX_REFS[label], tol=1e-9, ex=JaxExamples())

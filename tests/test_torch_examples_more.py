@@ -4,17 +4,16 @@ with its assertions and bounds (its longer problems are in
 `test_torch_examples_more_long.py`).
 
 Each is also held to the JAX package's run of the same script at the
-same arguments (`JAX_REFS`, from `python tools/port_references.py
---examples`): every solve's flag, and the objective of every solve that
-optimizes to 1e-8 relative (absolute below 1).  Iteration counts are not
-held: several of these problems turn on rounding (ROADMAP queue 3).  An
-adaptive run is held to its last flag, and one that
-`chip_smoke.EXAMPLES` marks with `rounding` to the flags and the spread
-that the JAX package itself shows when its starting point moves by 1e-10
-(`tools/perturbed_examples.py`).  The `slow` test runs the JAX scripts
-here and holds the constants to them."""
+same arguments (`chip_smoke.EXAMPLES_JAX`, from `python
+tools/port_references.py --examples`): every solve's flag, and the
+objective of every solve that optimizes to 1e-8 relative (absolute below
+1).  Iteration counts are not held: several of these problems turn on
+rounding (ROADMAP queue 3).  An adaptive run is held to its last flag,
+and one that `chip_smoke.EXAMPLES` marks with `rounding` to the flags
+and the spread that the JAX package itself shows when its starting point
+moves by 1e-10 (`tools/perturbed_examples.py`).
+`test_torch_examples_jax.py` holds those constants to the JAX scripts."""
 
-import pytest
 import torch
 
 import asset_asrl_torch as tast
@@ -25,23 +24,12 @@ torch.set_num_threads(2)
 tast.config.use_device("cpu")
 
 CONVERGED = 0
-# The JAX package's run of each example at the JAX test's arguments
-# (x64, CPU): every solve's flag, the objectives of those that optimize
-JAX_REFS = {
-    'AnalyticExample': ([0], [0.7615941713186274]),
-    'BrysonDenham': ([0], [4.000020729075615]),
-    'Zermelo': ([0], [2.2360679774997894]),
-    'ZermeloWinds': ([0, 0], [1.7009270229362867, 2.4361605225570657]),
-    'MountainCar': ([1], [1.0397658515128714]),
-    'FreeFlyingRobot': ([0], [7.914692750810655]),
-    'BikeObstacle': ([0], [5.0450118960274315]),
-}
 
 
 def solved(label):
     """The port's run of one example at its JAX test's arguments, held to
-    `JAX_REFS`; the numbers the test cites."""
-    return example_held(tast, label, JAX_REFS[label])[0]
+    the JAX package's; the numbers the test cites."""
+    return example_held(tast, label)[0]
 
 
 def test_analytic_example():
@@ -60,14 +48,14 @@ def test_bryson_denham():
 
 def test_zermelo_no_wind():
     """No-wind minimum time = straight-line distance / speed."""
-    c, solves = example_held(tast, "Zermelo", JAX_REFS["Zermelo"])
+    c, solves = example_held(tast, "Zermelo")
     assert [s[0] for s in solves] == [CONVERGED], solves
     assert abs(c["time"] - 5.0 ** 0.5) < 1e-6, c
 
 
 def test_zermelo_winds():
     """Wind-field variants converge with finite positive times."""
-    c, solves = example_held(tast, "ZermeloWinds", JAX_REFS["ZermeloWinds"])
+    c, solves = example_held(tast, "ZermeloWinds")
     assert [s[0] for s in solves] == [CONVERGED] * 2, solves
     assert 0 < c["time_uniform"] < 10 and 0 < c["time_variable"] < 10, c
 
@@ -92,13 +80,3 @@ def test_bike_obstacle():
     c = solved("BikeObstacle")
     assert 4.8 < c["time"] < 5.3, c
     assert c["clearance"] > 7.49, c
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("label", sorted(JAX_REFS))
-def test_references_are_the_jax_runs(label):
-    """The JAX package's script at the same arguments gives `JAX_REFS`
-    (flags equal, objectives to 1e-9 relative)."""
-    import asset_asrl_tpu as jast
-    from tools.port_references import JaxExamples
-    example_held(jast, label, JAX_REFS[label], tol=1e-9, ex=JaxExamples())

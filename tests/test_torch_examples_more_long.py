@@ -4,15 +4,15 @@ file apart from `test_torch_examples_more.py` so that test workers can
 take them apart.
 
 Each is also held to the JAX package's run of the same script at the
-same arguments (`JAX_REFS`, from `python tools/port_references.py
---examples`): every solve's flag, and the objective of every solve that
-optimizes to 1e-8 relative (absolute below 1).  Iteration counts are not
-held: several of these problems turn on rounding (ROADMAP queue 3).  An
-adaptive run is held to its last flag, and one that
-`chip_smoke.EXAMPLES` marks with `rounding` to the flags and the spread
-that the JAX package itself shows when its starting point moves by 1e-10
-(`tools/perturbed_examples.py`).  The `slow` test runs the JAX scripts
-here and holds the constants to them.
+same arguments (`chip_smoke.EXAMPLES_JAX`, from `python
+tools/port_references.py --examples`): every solve's flag, and the
+objective of every solve that optimizes to 1e-8 relative (absolute below
+1).  Iteration counts are not held: several of these problems turn on
+rounding (ROADMAP queue 3).  An adaptive run is held to its last flag,
+and one that `chip_smoke.EXAMPLES` marks with `rounding` to the flags
+and the spread that the JAX package itself shows when its starting point
+moves by 1e-10 (`tools/perturbed_examples.py`).
+`test_torch_examples_jax.py` holds those constants to the JAX scripts.
 
 The TopputtoLowThrust and HangingChain mirrors take minutes on the
 CPU and are `slow` too."""
@@ -27,24 +27,11 @@ torch.set_num_threads(2)
 # the port's tests run on the CPU, also on a machine with a card
 tast.config.use_device("cpu")
 
-# The JAX package's run of each example at the JAX test's arguments
-# (x64, CPU): every solve's flag, the objectives of those that optimize
-JAX_REFS = {
-    'MinimumTimeToClimb': ([0], [1.2868527875593083]),
-    'OrbitContinuation': ([0, 0, 0, 0, 0, 0], []),
-    'TopputtoLowThrust':
-        ([0, 0, 0], [0.5554696007701596, 0.47934423884191923,
-        0.4768107377578154]),
-    'HangingChain':
-        ([0, 0, 0, 2], [4.5000012918731045, 5.288221458507048,
-        6.085553015804939, 5.754210279304801]),
-}
-
 
 def solved(label):
     """The port's run of one example at its JAX test's arguments, held to
-    `JAX_REFS`; the numbers the test cites."""
-    return example_held(tast, label, JAX_REFS[label])[0]
+    the JAX package's; the numbers the test cites."""
+    return example_held(tast, label)[0]
 
 
 def test_minimum_time_to_climb():
@@ -83,13 +70,3 @@ def test_hanging_chain_jet():
     assert c["converged"] >= 3, c
     assert c["anchors"] < 1e-6, c
     assert c["sag"] < 0.0, c
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("label", sorted(JAX_REFS))
-def test_references_are_the_jax_runs(label):
-    """The JAX package's script at the same arguments gives `JAX_REFS`
-    (flags equal, objectives to 1e-9 relative)."""
-    import asset_asrl_tpu as jast
-    from tools.port_references import JaxExamples
-    example_held(jast, label, JAX_REFS[label], tol=1e-9, ex=JaxExamples())

@@ -6,39 +6,28 @@ the problems of `examples/VanDerPol.py`, `GoddardRocket.py` and
 those scripts, with the JAX tests' assertions and bounds.
 
 Each solve is also held to the JAX package's run of the same script
-(`JAX_REFS`, from `python tools/port_references.py --examples`): the
-flags, and the objectives to 1e-9 relative.  Not the iteration counts:
-the three-phase Goddard and the cannon are chaotic in the reference
-itself (ROADMAP queue 3: a 1e-10 perturbation of the guess moves either
-package's count by up to tens of iterations), while the optimum they
-reach agrees to 1e-9.  The `slow` test runs the JAX scripts here and
-holds the constants to them."""
+(`chip_smoke.EXAMPLES_JAX`, from `python tools/port_references.py
+--examples`): the flags, and the objectives to 1e-9 relative.  Not the
+iteration counts: the three-phase Goddard and the cannon are chaotic in
+the reference itself (ROADMAP queue 3: a 1e-10 perturbation of the guess
+moves either package's count by up to tens of iterations), while the
+optimum they reach agrees to 1e-9.  `test_torch_examples_jax.py` holds
+those constants to the JAX scripts."""
 
 import numpy as np
-import pytest
 import torch
 
 import asset_asrl_torch as tast
 from asset_asrl_torch.examples.GoddardRocket import Lstar
-from chip_smoke import example_faults, example_held, solve_log
+from chip_smoke import EXAMPLES_JAX, example_faults, example_held, solve_log
 
 torch.set_num_threads(2)
 # the port's tests run on the CPU, also on a machine with a card
 tast.config.use_device("cpu")
 
-# The JAX package's run of each script (x64, CPU): every solve's flag,
-# the objectives of those that optimize; GoddardRocket's first solve is
-# the single phase, its second the three phases
-JAX_REFS = {
-    'VanDerPol': ([0], [2.8749745212848783]),
-    'GoddardRocket': ([0, 0], [-1.8727809435577538, -1.8728075235747599]),
-    'MultiPhaseCannon': ([0], [-3.2802033834430975]),
-}
-
 
 def test_vanderpol():
-    c = example_held(tast, "VanDerPol", JAX_REFS["VanDerPol"], tol=1e-9,
-                     size="full")[0]
+    c = example_held(tast, "VanDerPol", size="full", tol=1e-9)[0]
     # dymos reference objective for this configuration is ~2.87
     assert abs(c["objective"] - 2.87) < 0.1, c
 
@@ -61,7 +50,8 @@ def goddard(formulation):
 
 
 def held(log, which):
-    flags, objs = JAX_REFS["GoddardRocket"]
+    # the script's first solve is the single phase, its second the three
+    flags, objs = EXAMPLES_JAX["GoddardRocket full"]
     bad = example_faults(None, {}, log, ([flags[which]], [objs[which]]),
                          tol=1e-9)
     assert not bad, bad
@@ -87,20 +77,9 @@ def test_goddard_multiphase():
 
 
 def test_multiphase_cannon():
-    c = example_held(tast, "MultiPhaseCannon", JAX_REFS["MultiPhaseCannon"],
-                     tol=1e-9, size="full")[0]
+    c = example_held(tast, "MultiPhaseCannon", size="full",
+                     tol=1e-9)[0]
     assert abs(c["range"] - 3280.2) < 25, c
     assert abs(c["radius"] - 0.04195) < 5e-3, c
     # ODE param linked across phases
     assert c["param_link"] < 1e-10, c
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("label", sorted(JAX_REFS))
-def test_references_are_the_jax_runs(label):
-    """The JAX package's script gives `JAX_REFS` (flags equal, objectives
-    to 1e-9 relative)."""
-    import asset_asrl_tpu as jast
-    from tools.port_references import JaxExamples
-    example_held(jast, label, JAX_REFS[label], tol=1e-9, size="full",
-                 ex=JaxExamples())

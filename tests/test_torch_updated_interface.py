@@ -6,15 +6,15 @@ bounds (its reentry and Delta III are in
 `test_torch_updated_interface_long.py`).
 
 Each is also held to the JAX package's run of the same script at the
-same arguments (`JAX_REFS`, from `python tools/port_references.py
---examples`): every solve's flag, and the objective of every solve that
-optimizes to 1e-8 relative (absolute below 1).  Iteration counts are not
-held: several of these problems turn on rounding (ROADMAP queue 3).  An
-adaptive run is held to its last flag, and one that
-`chip_smoke.EXAMPLES` marks with `rounding` to the flags and the spread
-that the JAX package itself shows when its starting point moves by 1e-10
-(`tools/perturbed_examples.py`).  The `slow` test runs the JAX scripts
-here and holds the constants to them.
+same arguments (`chip_smoke.EXAMPLES_JAX`, from `python
+tools/port_references.py --examples`): every solve's flag, and the
+objective of every solve that optimizes to 1e-8 relative (absolute below
+1).  Iteration counts are not held: several of these problems turn on
+rounding (ROADMAP queue 3).  An adaptive run is held to its last flag,
+and one that `chip_smoke.EXAMPLES` marks with `rounding` to the flags
+and the spread that the JAX package itself shows when its starting point
+moves by 1e-10 (`tools/perturbed_examples.py`).
+`test_torch_examples_jax.py` holds those constants to the JAX scripts.
 
 The Betts mirror takes 12 minutes on the CPU and is `slow` too."""
 
@@ -28,23 +28,11 @@ torch.set_num_threads(2)
 # the port's tests run on the CPU, also on a machine with a card
 tast.config.use_device("cpu")
 
-# The JAX package's run of each example at the JAX test's arguments
-# (x64, CPU): every solve's flag, the objectives of those that optimize
-JAX_REFS = {
-    'UpdatedInterface.GoddardRocket':
-        ([0, 0], [-1.8728055750242727, -1.8728075235747617]),
-    'UpdatedInterface.MultiPhaseCannon': ([0], [-3.2802033834430975]),
-    'UpdatedInterface.MinimumTimeToClimb': ([0], [1.286852787559307]),
-    'UpdatedInterface.BettsLowThrust':
-        ([0, 0, 0], [-0.2184659932577457, -0.220364803226086,
-        -0.22036684595538925]),
-}
-
 
 def solved(label):
     """The port's run of one example at its JAX test's arguments, held to
-    `JAX_REFS`; the numbers the test cites."""
-    return example_held(tast, label, JAX_REFS[label])[0]
+    the JAX package's; the numbers the test cites."""
+    return example_held(tast, label)[0]
 
 
 def test_ui_goddard_rocket():
@@ -74,13 +62,3 @@ def test_ui_betts_low_thrust():
     min on an 8-core CPU (the integrator)."""
     c = solved("UpdatedInterface.BettsLowThrust")
     assert abs(c["final_weight"] - 0.220179) < 2e-4, c
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("label", sorted(JAX_REFS))
-def test_references_are_the_jax_runs(label):
-    """The JAX package's script at the same arguments gives `JAX_REFS`
-    (flags equal, objectives to 1e-9 relative)."""
-    import asset_asrl_tpu as jast
-    from tools.port_references import JaxExamples
-    example_held(jast, label, JAX_REFS[label], tol=1e-9, ex=JaxExamples())

@@ -5,17 +5,16 @@ with its assertions and bounds: a file apart from
 apart.
 
 Each is also held to the JAX package's run of the same script at the
-same arguments (`JAX_REFS`, from `python tools/port_references.py
---examples`): every solve's flag, and the objective of every solve that
-optimizes to 1e-8 relative (absolute below 1).  Iteration counts are not
-held: several of these problems turn on rounding (ROADMAP queue 3).  An
-adaptive run is held to its last flag, and one that
-`chip_smoke.EXAMPLES` marks with `rounding` to the flags and the spread
-that the JAX package itself shows when its starting point moves by 1e-10
-(`tools/perturbed_examples.py`).  The `slow` test runs the JAX scripts
-here and holds the constants to them."""
+same arguments (`chip_smoke.EXAMPLES_JAX`, from `python
+tools/port_references.py --examples`): every solve's flag, and the
+objective of every solve that optimizes to 1e-8 relative (absolute below
+1).  Iteration counts are not held: several of these problems turn on
+rounding (ROADMAP queue 3).  An adaptive run is held to its last flag,
+and one that `chip_smoke.EXAMPLES` marks with `rounding` to the flags
+and the spread that the JAX package itself shows when its starting point
+moves by 1e-10 (`tools/perturbed_examples.py`).
+`test_torch_examples_jax.py` holds those constants to the JAX scripts."""
 
-import pytest
 import torch
 
 import asset_asrl_torch as tast
@@ -25,20 +24,11 @@ torch.set_num_threads(2)
 # the port's tests run on the CPU, also on a machine with a card
 tast.config.use_device("cpu")
 
-# The JAX package's run of each example at the JAX test's arguments
-# (x64, CPU): every solve's flag, the objectives of those that optimize
-JAX_REFS = {
-    'UpdatedInterface.Reentry':
-        ([0, 0, 0], [-0.5958791817960595, -0.595880075472542,
-        -0.5346228972812044]),
-    'UpdatedInterface.Delta3Launch': ([0], [-0.02497810170578128]),
-}
-
 
 def solved(label):
     """The port's run of one example at its JAX test's arguments, held to
-    `JAX_REFS`; the numbers the test cites."""
-    return example_held(tast, label, JAX_REFS[label])[0]
+    the JAX package's; the numbers the test cites."""
+    return example_held(tast, label)[0]
 
 
 def test_ui_reentry():
@@ -52,13 +42,3 @@ def test_ui_delta3_launch():
     7529.7499 kg; held to the last flag, not to the objective."""
     c = solved("UpdatedInterface.Delta3Launch")
     assert abs(c["final_mass"] - 7529.7499) < 1.0, c
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("label", sorted(JAX_REFS))
-def test_references_are_the_jax_runs(label):
-    """The JAX package's script at the same arguments gives `JAX_REFS`
-    (flags equal, objectives to 1e-9 relative)."""
-    import asset_asrl_tpu as jast
-    from tools.port_references import JaxExamples
-    example_held(jast, label, JAX_REFS[label], tol=1e-9, ex=JaxExamples())

@@ -40,7 +40,8 @@ files by `JaxExamples`) through the entries of `chip_smoke.EXAMPLES`
 21's full call, and prints for each every solve's flag and iterations,
 the objectives of the solves that optimize (null where one failed), the
 numbers its test cites and the seconds it took -> `EXAMPLES_JAX` in
-`chip_smoke.py` and `JAX_REFS` in the example mirrors.  All of them take
+`chip_smoke.py` (`tests/test_torch_examples_jax.py` holds those constants
+to the JAX scripts, `slow`).  All of them take
 about 100 minutes on an 8-core CPU (46 in three processes side by side); the
 two Betts transfers about 16 minutes each, Heteroclinic 8, everything
 else under 5.
