@@ -24,7 +24,8 @@ a CPU tensor takes the plain PyTorch version (the tests run on the CPU):
 `gj_inverse_blocked_ref` repeats the wide kernel's panel algorithm step
 for step, so that its arithmetic can be tested without a card.
 `gj_inverse.launches` counts calls that launched a narrow kernel,
-`gj_inverse.wide_launches` those that launched the wide one.
+`gj_inverse.wide_launches` those that launched the wide one, and
+`gj_inverse.shapes` every launch by its (K, W).
 """
 
 from __future__ import annotations
@@ -210,6 +211,7 @@ def _launch(D, sanitize, who):
         gj_inverse.wide_launches += 1
     else:
         gj_inverse.launches += 1
+    gj_inverse.shapes[K, W] = gj_inverse.shapes.get((K, W), 0) + 1
     return Dinv, pivs, nbad
 
 
@@ -248,3 +250,5 @@ def gj_inverse_inertia(D):
 
 gj_inverse.launches = 0
 gj_inverse.wide_launches = 0
+# (K, W) -> launches of K1 at that shape, narrow and wide
+gj_inverse.shapes = {}

@@ -26,13 +26,24 @@ So the host reads one flag per iteration and one per ladder step, the
 places where a JAX while_loop reads its condition.  The JAX package's
 non-TPU branches are the ones ported: the inertia probe at delta 0, no
 zero-target refinement, no ASSET_PROBE0 verification.
+
+Each stage of an iteration runs inside a `Utils.span` (`asset.fused.*`,
+a profiler range while a profiler records) that adds its host seconds to
+the run's stats: `ad_s` (family AD), `kkt_s` (assembly, factorizations,
+solves and the inequality matvecs), `ls_s` (the line search), `read_s`
+(the host reads, i.e. waiting on the device).  They do not overlap, so
+`loop_s` (the whole run) less their sum is the rest of the loop.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from .. import config
+from ..Utils import span
+from .cuda_kernels import gj_inverse
 
 __all__ = ["build_fused_alg", "build_fused_ensemble", "init_multipliers",
            "INFO_FIELDS"]
@@ -42,6 +53,19 @@ INFO_FIELDS = ("obj", "kkt", "econ", "icon", "barr", "mu", "alpha",
 
 # flags (match psiopt.ConvergenceFlags)
 _CONV, _ACC, _NOTCONV, _DIV = 0, 1, 2, 3
+
+# profiler ranges (`Utils.span`)
+_ITERATION = "asset.fused.iteration"
+_FAMILY_AD = "asset.fused.family_ad"
+_ASSEMBLY = "asset.fused.assembly"
+_FACTOR = "asset.fused.factor"
+_SOLVE = "asset.fused.solve"
+_LINE_SEARCH = "asset.fused.line_search"
+_READ = "asset.fused.read"
+# the run's counters (`fn.stats`), reset at each call: counts, and host
+# seconds by stage
+_COUNTS = ("iterations", "syncs", "factorizations", "k1_launches")
+_STAGES = ("ad_s", "kkt_s", "ls_s", "read_s", "loop_s")
 
 
 def _slack_reset(s, cI, negreset):
@@ -92,20 +116,25 @@ def _select(c, new, old):
     return torch.where(_bcast(c, new), new, old)
 
 
-def init_multipliers(kkt, x, sigma, gammaE, consts):
+def init_multipliers(kkt, x, sigma, gammaE, consts, stats=None):
     """Least-squares equality multipliers of every lane (x (B, n)): one
     first-order factorization (structural-zero Hessians, unit primal
     diagonal, unit slack Hessian); the equality block of -K^{-1} [sigma
-    gradf; 0].  Returns (B, mE), not checked for finiteness."""
+    gradf; 0].  Returns (B, mE), not checked for finiteness.  With
+    `stats`, the stages' host seconds are added to its `ad_s` / `kkt_s`."""
     nlp = kkt.nlp
     B, dev = x.shape[0], x.device
     zE = torch.zeros((B, nlp.numEq), dtype=config.DTYPE, device=dev)
     zI = torch.zeros((B, nlp.numIq), dtype=config.DTYPE, device=dev)
-    _, _, _, rd0, fam0 = kkt._eval_core(x, zE, zI, float(sigma), consts,
-                                        want_hess="zeros")
-    blocks0 = kkt._blocks_impl(fam0, torch.ones_like(zI))
-    fac0, _ = kkt._factor_blocks_impl(blocks0, 1.0, float(gammaE))
-    _, lamE0 = kkt._solve_impl(fac0, -rd0, zE)
+    with span(_FAMILY_AD, stats, "ad_s"):
+        _, _, _, rd0, fam0 = kkt._eval_core(x, zE, zI, float(sigma), consts,
+                                            want_hess="zeros")
+    with span(_ASSEMBLY, stats, "kkt_s"):
+        blocks0 = kkt._blocks_impl(fam0, torch.ones_like(zI))
+    with span(_FACTOR, stats, "kkt_s"):
+        fac0, _ = kkt._factor_blocks_impl(blocks0, 1.0, float(gammaE))
+    with span(_SOLVE, stats, "kkt_s"):
+        _, lamE0 = kkt._solve_impl(fac0, -rd0, zE)
     return lamE0
 
 
@@ -118,7 +147,9 @@ def build_fused_alg(kkt, opts, mode):
     flag, niters, infos, best_x, best_s, best_lamE, best_lamI).  The state
     has a leading lane axis (x (B, n), ...; flag, niters, Mu (B,); infos
     (B, MaxIters, 9)); one problem is B = 1.  fn.stats holds the last
-    call's outer iterations, host reads ("syncs") and factorizations."""
+    call's outer iterations, host reads ("syncs"), factorizations, K1
+    launches ("k1_launches") and the host seconds of its stages (module
+    docstring)."""
     nlp = kkt.nlp
     mE, mI = nlp.numEq, nlp.numIq
     soe = mode in ("SOE", "OPTNO")
@@ -159,12 +190,25 @@ def build_fused_alg(kkt, opts, mode):
     FastFactor = bool(opts["FastFactorAlg"])
     best_mode = str(opts.get("BestCriteria", "ECons"))
     eval_oc = nlp.eval_obj_cons_impl
-    stats = dict(iterations=0, syncs=0, factorizations=0)
+    stats = {}
+
+    def reset_stats():
+        stats.update(dict.fromkeys(_COUNTS, 0))
+        stats.update(dict.fromkeys(_STAGES, 0.0))
+    reset_stats()
 
     def factor_blocks(blocks, d):
         # unit_diag: SOE mode's unit primal diagonal
         stats["factorizations"] += 1
-        return kkt._factor_blocks_impl(blocks, d + unit_diag, gammaE)
+        with span(_FACTOR, stats, "kkt_s"):
+            return kkt._factor_blocks_impl(blocks, d + unit_diag, gammaE)
+
+    def read(flags):
+        """Whether any entry of the device tensor `flags` is set: one host
+        read."""
+        stats["syncs"] += 1
+        with span(_READ, stats, "read_s"):
+            return bool(flags.any())
 
     def factor_ladder(blocks, Hpert0, first_pert, zfac, active):
         """Inertia-correction ladder: probe at delta = 0 when allowed,
@@ -177,8 +221,7 @@ def build_fused_alg(kkt, opts, mode):
         k = torch.zeros_like(neigs)
         while True:
             climbing = (neigs > mE) & (k < MaxRefac) & active
-            stats["syncs"] += 1
-            if not bool(climbing.any()):
+            if not read(climbing):
                 return fac, neigs, dused, k
             fac2, neigs2 = factor_blocks(blocks, dnext)
             fac = _select(climbing, fac2, fac)
@@ -251,8 +294,9 @@ def build_fused_alg(kkt, opts, mode):
         B = x.shape[0]
         zB = x.new_zeros((B,))
 
-        obj, cE, cIraw, rd, famvals = kkt._eval_core(
-            x, lamE, lamI, sigma, consts, want_hess=want_hess)
+        with span(_FAMILY_AD, stats, "ad_s"):
+            obj, cE, cIraw, rd, famvals = kkt._eval_core(
+                x, lamE, lamI, sigma, consts, want_hess=want_hess)
         if zero_rd:
             # first-order feasibility steps: zero primal gradient
             rd = torch.zeros_like(rd)
@@ -272,7 +316,8 @@ def build_fused_alg(kkt, opts, mode):
             sig_tilde = SigInv = x.new_zeros((B, 0))
             avgcomp = mincomp = maxcomp = zB
 
-        blocks = kkt._blocks_impl(famvals, sig_tilde)
+        with span(_ASSEMBLY, stats, "kkt_s"):
+            blocks = kkt._blocks_impl(famvals, sig_tilde)
 
         # FastFactorAlg probe heuristic: skip the delta=0 probe when the
         # last 4 iterations all needed perturbation.
@@ -292,10 +337,12 @@ def build_fused_alg(kkt, opts, mode):
         if mI > 0:
             if barmode == "PROBE":
                 w_aff = rI - SigInv * lamI
-                rx_aff = rd + kkt._iq_rmatvec_impl(fac, sig_tilde * w_aff)
-                dxa, _ = kkt._solve_impl(fac, -rx_aff, -cE)
-                dlamI_aff = sig_tilde * (kkt._iq_matvec_impl(fac, dxa)
-                                         + w_aff)
+                with span(_SOLVE, stats, "kkt_s"):
+                    rx_aff = rd + kkt._iq_rmatvec_impl(fac,
+                                                       sig_tilde * w_aff)
+                    dxa, _ = kkt._solve_impl(fac, -rx_aff, -cE)
+                    dlamI_aff = sig_tilde * (kkt._iq_matvec_impl(fac, dxa)
+                                             + w_aff)
                 ds_aff = -SigInv * (lamI + dlamI_aff)
                 # fraction-to-boundary damping of the affine probe
                 apa = _maxstep(s, ds_aff, bfrac)
@@ -322,17 +369,18 @@ def build_fused_alg(kkt, opts, mode):
             rs = x.new_zeros((B, 0))
 
         # ---------------------------------------------------- newton solve
-        if mI > 0:
-            w = rI - SigInv * rs
-            rhs_x = rd + kkt._iq_rmatvec_impl(fac, sig_tilde * w)
-        else:
-            rhs_x = rd
-        dx, dlamE = kkt._solve_impl(fac, -rhs_x, -cE)
-        if mI > 0:
-            dlamI = sig_tilde * (kkt._iq_matvec_impl(fac, dx) + w)
-            ds = -SigInv * (rs + dlamI)
-        else:
-            dlamI, ds = lamI, s
+        with span(_SOLVE, stats, "kkt_s"):
+            if mI > 0:
+                w = rI - SigInv * rs
+                rhs_x = rd + kkt._iq_rmatvec_impl(fac, sig_tilde * w)
+            else:
+                rhs_x = rd
+            dx, dlamE = kkt._solve_impl(fac, -rhs_x, -cE)
+            if mI > 0:
+                dlamI = sig_tilde * (kkt._iq_matvec_impl(fac, dx) + w)
+                ds = -SigInv * (rs + dlamI)
+            else:
+                dlamI, ds = lamI, s
         good = torch.isfinite((dx ** 2).sum(-1)) \
             & torch.isfinite((dlamE ** 2).sum(-1))
 
@@ -356,9 +404,10 @@ def build_fused_alg(kkt, opts, mode):
 
         # ------------------------------------------------------ line search
         if lsmode in ("AUGLANG", "L1", "LANG"):
-            alpha = line_search(x, s, lamE, lamI, dx, ds, obj * sigma,
-                                BarrObj, Mu, rd, rs, cE, rI, dlamE, dlamI,
-                                consts)
+            with span(_LINE_SEARCH, stats, "ls_s"):
+                alpha = line_search(x, s, lamE, lamI, dx, ds, obj * sigma,
+                                    BarrObj, Mu, rd, rs, cE, rI, dlamE,
+                                    dlamI, consts)
             alpha = torch.where(good, alpha, 1.0)
         else:
             alpha = x.new_ones((B,))
@@ -421,7 +470,7 @@ def build_fused_alg(kkt, opts, mode):
         if init_lmults and mE > 0:
             stats["factorizations"] += 1
             lamE0 = init_multipliers(kkt, x, opts["ObjScale"], gammaE,
-                                     consts)
+                                     consts, stats)
             good = torch.isfinite((lamE0 ** 2).sum(-1))
             lamE = torch.where(good[:, None], lamE0, torch.zeros_like(lamE0))
         i64 = dict(dtype=torch.int64, device=dev)
@@ -441,15 +490,16 @@ def build_fused_alg(kkt, opts, mode):
                     best_x=x, best_s=s, best_lE=lamE, best_lI=lamI)
 
     def run(x, s, lamE, lamI, Mu0, consts):
-        stats.update(iterations=0, syncs=0, factorizations=0)
+        t0 = time.perf_counter()
+        k1_0 = sum(gj_inverse.shapes.values())
+        reset_stats()
         st = make_init(x, s, lamE, lamI, Mu0, consts)
-        while True:
-            stats["syncs"] += 1
-            if not bool(((st["flag"] == _NOTCONV)
-                         & (st["it"] < MaxIters)).any()):
-                break
-            st = iteration(st, consts)
+        while read((st["flag"] == _NOTCONV) & (st["it"] < MaxIters)):
+            with span(_ITERATION):
+                st = iteration(st, consts)
             stats["iterations"] += 1
+        stats["k1_launches"] = sum(gj_inverse.shapes.values()) - k1_0
+        stats["loop_s"] = time.perf_counter() - t0
         return (st["x"], st["s"], st["lamE"], st["lamI"], st["Mu"],
                 st["flag"], st["it"], st["infos"], st["best_x"],
                 st["best_s"], st["best_lE"], st["best_lI"])

@@ -36,8 +36,14 @@ import numpy as np
 import torch
 
 from .. import config
+from ..Utils import span
 from .cuda_kernels import gj_inverse_inertia
 from .nlp import _family_hess, _family_valjac
+
+# profiler ranges (`Utils.span`); a family's are built in BlockKKT.__init__
+_K1 = "asset.k1"
+_BCR_FACTOR = "asset.kkt.bcr_factor"
+_BCR_SOLVE = "asset.kkt.bcr_solve"
 
 
 # ===========================================================================
@@ -384,9 +390,10 @@ def _inv_sym(D):
     as on the JAX package's CPU path.  K1 counts the bad pivots per block
     and zeroes the non-finite entries of the inverse itself; the sums stay
     on the device."""
-    lead, W = D.shape[:-2], D.shape[-1]
-    Dinv, _, nbad = gj_inverse_inertia(D.reshape(-1, W, W).contiguous())
-    return Dinv.reshape(D.shape), nbad.view(lead).sum(-1)
+    with span(_K1):
+        lead, W = D.shape[:-2], D.shape[-1]
+        Dinv, _, nbad = gj_inverse_inertia(D.reshape(-1, W, W).contiguous())
+        return Dinv.reshape(D.shape), nbad.view(lead).sum(-1)
 
 
 def bcr_factor(diag, lower, Bmat, C, invert_border=True):
@@ -403,82 +410,84 @@ def bcr_factor(diag, lower, Bmat, C, invert_border=True):
     `kkt_sharded`) stops at the border's Schur complement: the factor
     holds `C_schur` (B,b,b) instead of `Cinv`, and neigs counts the
     chain's pivots only."""
-    Bn, K, W, _ = diag.shape
-    b = C.shape[-1]
-    neigs = torch.zeros((Bn,), dtype=torch.int64, device=diag.device)
-    levels = []
-    d, l, B = diag, lower, Bmat
-    while d.shape[1] > 1:
-        Ka = d.shape[1]
-        Ke = Ka // 2
-        Kn = Ka - Ke
-        dpad = _zpad(d, 0, 1)
-        lpad = _zpad(l, 0, 2)
-        Bpad = _zpad(B, 0, 1)
-        d_even = dpad[:, 0::2][:, :Kn]
-        d_odd = dpad[:, 1::2][:, :Ke]
-        L_le = lpad[:, 0::2][:, :Ke]          # K[2i+1, 2i]
-        L_er = lpad[:, 1::2][:, :Ke]          # K[2i+2, 2i+1]
-        B_even = Bpad[:, 0::2][:, :Kn]
-        B_odd = Bpad[:, 1::2][:, :Ke]
+    with span(_BCR_FACTOR):
+        Bn, K, W, _ = diag.shape
+        b = C.shape[-1]
+        neigs = torch.zeros((Bn,), dtype=torch.int64, device=diag.device)
+        levels = []
+        d, l, B = diag, lower, Bmat
+        while d.shape[1] > 1:
+            Ka = d.shape[1]
+            Ke = Ka // 2
+            Kn = Ka - Ke
+            dpad = _zpad(d, 0, 1)
+            lpad = _zpad(l, 0, 2)
+            Bpad = _zpad(B, 0, 1)
+            d_even = dpad[:, 0::2][:, :Kn]
+            d_odd = dpad[:, 1::2][:, :Ke]
+            L_le = lpad[:, 0::2][:, :Ke]          # K[2i+1, 2i]
+            L_er = lpad[:, 1::2][:, :Ke]          # K[2i+2, 2i+1]
+            B_even = Bpad[:, 0::2][:, :Kn]
+            B_odd = Bpad[:, 1::2][:, :Ke]
 
-        Dinv, neg = _inv_sym(d_odd)
-        neigs = neigs + neg
-        levels.append(dict(Dinv=Dinv, L_le=L_le, L_er=L_er, B_odd=B_odd))
+            Dinv, neg = _inv_sym(d_odd)
+            neigs = neigs + neg
+            levels.append(dict(Dinv=Dinv, L_le=L_le, L_er=L_er, B_odd=B_odd))
 
-        def overlap2(base, at0, at1):
-            """base (B,Kn,...) - at0 placed at [0:Ke] - at1 placed at
-            [1:Ke+1] (entries beyond Kn dropped)."""
-            out = base - _zpad(at0[:, :Kn], 0, Kn - min(Ke, Kn))
-            a1 = at1[:, :Kn - 1]
-            return out - _zpad(a1, 1, Kn - 1 - a1.shape[1])
+            def overlap2(base, at0, at1):
+                """base (B,Kn,...) - at0 placed at [0:Ke] - at1 placed at
+                [1:Ke+1] (entries beyond Kn dropped)."""
+                out = base - _zpad(at0[:, :Kn], 0, Kn - min(Ke, Kn))
+                a1 = at1[:, :Kn - 1]
+                return out - _zpad(a1, 1, Kn - 1 - a1.shape[1])
 
-        # Packed elimination: every Schur update of the level comes from
-        # two batched products.  X = [L_le^T; L_er; B_odd^T] (Ke, 2W+b, W),
-        # Z = (X Dinv) [L_le | L_er^T | B_odd]:
-        #   Z[:W,  :W]   = L_le^T Dinv L_le   (even-diag update, left)
-        #   Z[W:2W,:W]   = L_er  Dinv L_le    (-l_new)
-        #   Z[W:2W,W:2W] = L_er  Dinv L_er^T  (even-diag update, right)
-        #   Z[:W,  2W:]  = L_le^T Dinv B_odd  (B update, left)
-        #   Z[W:2W,2W:]  = L_er  Dinv B_odd   (B update, right)
-        #   Z[2W:, 2W:]  = B_odd^T Dinv B_odd (border C update)
-        X = torch.cat([L_le.transpose(-1, -2), L_er,
-                       B_odd.transpose(-1, -2)], dim=2)
-        R = torch.cat([L_le, L_er.transpose(-1, -2), B_odd], dim=3)
-        Z = (X @ Dinv) @ R
-        d_new = overlap2(d_even, Z[:, :, :W, :W], Z[:, :, W:2 * W, W:2 * W])
+            # Packed elimination: every Schur update of the level comes from
+            # two batched products.  X = [L_le^T; L_er; B_odd^T] (Ke, 2W+b, W),
+            # Z = (X Dinv) [L_le | L_er^T | B_odd]:
+            #   Z[:W,  :W]   = L_le^T Dinv L_le   (even-diag update, left)
+            #   Z[W:2W,:W]   = L_er  Dinv L_le    (-l_new)
+            #   Z[W:2W,W:2W] = L_er  Dinv L_er^T  (even-diag update, right)
+            #   Z[:W,  2W:]  = L_le^T Dinv B_odd  (B update, left)
+            #   Z[W:2W,2W:]  = L_er  Dinv B_odd   (B update, right)
+            #   Z[2W:, 2W:]  = B_odd^T Dinv B_odd (border C update)
+            X = torch.cat([L_le.transpose(-1, -2), L_er,
+                           B_odd.transpose(-1, -2)], dim=2)
+            R = torch.cat([L_le, L_er.transpose(-1, -2), B_odd], dim=3)
+            Z = (X @ Dinv) @ R
+            d_new = overlap2(d_even, Z[:, :, :W, :W],
+                             Z[:, :, W:2 * W, W:2 * W])
+            if b > 0:
+                B_new = overlap2(B_even, Z[:, :, :W, 2 * W:],
+                                 Z[:, :, W:2 * W, 2 * W:])
+                C = C - Z[:, :, 2 * W:, 2 * W:].sum(1)
+            else:
+                B_new = B_even
+
+            l_new = -Z[:, :, W:2 * W, :W]
+            if Kn > 1:
+                l_new = l_new[:, :Kn - 1] if l_new.shape[1] >= Kn - 1 else \
+                    _zpad(l_new, 0, Kn - 1 - l_new.shape[1])
+            else:
+                l_new = l.new_zeros((Bn, 1, W, W))
+            d, l, B = d_new, l_new, B_new
+
+        # final single block + border Schur complement (the border of every
+        # lane in one K1 launch)
+        Dinv0, neg0 = _inv_sym(d)
+        neigs = neigs + neg0
+        D0inv = Dinv0[:, 0]
+        B0 = B[:, 0]
+        C_schur = C - B0.transpose(-1, -2) @ D0inv @ B0
+        if not invert_border:
+            return dict(levels=levels, D0inv=D0inv, B0=B0,
+                        C_schur=C_schur), neigs
         if b > 0:
-            B_new = overlap2(B_even, Z[:, :, :W, 2 * W:],
-                             Z[:, :, W:2 * W, 2 * W:])
-            C = C - Z[:, :, 2 * W:, 2 * W:].sum(1)
+            Cinv1, negC = _inv_sym(C_schur[:, None])
+            neigs = neigs + negC
+            Cinv = Cinv1[:, 0]
         else:
-            B_new = B_even
-
-        l_new = -Z[:, :, W:2 * W, :W]
-        if Kn > 1:
-            l_new = l_new[:, :Kn - 1] if l_new.shape[1] >= Kn - 1 else \
-                _zpad(l_new, 0, Kn - 1 - l_new.shape[1])
-        else:
-            l_new = l.new_zeros((Bn, 1, W, W))
-        d, l, B = d_new, l_new, B_new
-
-    # final single block + border Schur complement (the border of every
-    # lane in one K1 launch)
-    Dinv0, neg0 = _inv_sym(d)
-    neigs = neigs + neg0
-    D0inv = Dinv0[:, 0]
-    B0 = B[:, 0]
-    C_schur = C - B0.transpose(-1, -2) @ D0inv @ B0
-    if not invert_border:
-        return dict(levels=levels, D0inv=D0inv, B0=B0,
-                    C_schur=C_schur), neigs
-    if b > 0:
-        Cinv1, negC = _inv_sym(C_schur[:, None])
-        neigs = neigs + negC
-        Cinv = Cinv1[:, 0]
-    else:
-        Cinv = diag.new_zeros((Bn, 0, 0))
-    return dict(levels=levels, D0inv=D0inv, B0=B0, Cinv=Cinv), neigs
+            Cinv = diag.new_zeros((Bn, 0, 0))
+        return dict(levels=levels, D0inv=D0inv, B0=B0, Cinv=Cinv), neigs
 
 
 def bcr_reduce_rhs(fac, rhs_blocks, rhs_border):
@@ -529,10 +538,11 @@ def bcr_backsub(fac, stack, r_root, z):
 def bcr_solve(fac, rhs_blocks, rhs_border):
     """Solve [T,B;B^T,C][y;z]=[r;rb] with the bcr_factor output, for every
     lane: rhs_blocks (B,K,W), rhs_border (B,b)."""
-    stack, r_root, rb = bcr_reduce_rhs(fac, rhs_blocks, rhs_border)
-    z = _mv(fac["Cinv"], rb) if fac["Cinv"].shape[-1] > 0 else rb
-    y = bcr_backsub(fac, stack, r_root, z)
-    return y, z
+    with span(_BCR_SOLVE):
+        stack, r_root, rb = bcr_reduce_rhs(fac, rhs_blocks, rhs_border)
+        z = _mv(fac["Cinv"], rb) if fac["Cinv"].shape[-1] > 0 else rb
+        y = bcr_backsub(fac, stack, r_root, z)
+        return y, z
 
 
 # ===========================================================================
@@ -732,6 +742,12 @@ class BlockKKT:
             self._iq.append(fam)
         self._obj = [fam_entry(f, None, jnz, hnz)
                      for f, (jnz, hnz) in zip(nlp.objectives, obj_nz)]
+        # the family AD's profiler ranges: asset.ad.<eq|iq|obj><i>.<stage>
+        for kind, fams in (("eq", self._eq), ("iq", self._iq),
+                           ("obj", self._obj)):
+            for i, fam in enumerate(fams):
+                fam["spans"] = {t: f"asset.ad.{kind}{i}.{t}"
+                                for t in ("gather", "vj", "hess")}
         self._build_plan()
 
         # regularization diagonal: +delta on primal slots, -gammaE on
@@ -832,15 +848,24 @@ class BlockKKT:
         obj = torch.zeros((Bn,), dtype=config.DTYPE, device=dev)
 
         def one(fam, cc, lam):
+            """One family over every lane; lam: the multipliers of every
+            row (B, m), or None for an objective (unit weights)."""
             napps, nin = fam["napps"], fam["nin"]
-            xg = _lanes(x[:, fam["Vidx_t"]])
-            cb = cc.repeat(Bn, 1)
-            lb = _lanes(lam)
-            fx, jx = fam["vj"](xg, cb)
-            g = (jx * lb[:, :, None]).sum(1)
+            names = fam["spans"]
+            with span(names["gather"]):
+                xg = _lanes(x[:, fam["Vidx_t"]])
+                cb = cc.repeat(Bn, 1)
+                lb = torch.ones((Bn * napps, 1), dtype=config.DTYPE,
+                                device=dev) if lam is None \
+                    else _lanes(lam[:, fam["rows_t"]])
+            with span(names["vj"]):
+                fx, jx = fam["vj"](xg, cb)
+                g = (jx * lb[:, :, None]).sum(1)
             hx = None
             if fam["need_hess"] and want_hess is True:
-                hx = fam["hess"](xg, cb, lb).reshape(Bn, napps, nin, nin)
+                with span(names["hess"]):
+                    hx = fam["hess"](xg, cb, lb).reshape(Bn, napps, nin,
+                                                         nin)
             elif fam["need_hess"] and want_hess == "zeros":
                 hx = torch.zeros((Bn, napps, nin, nin), dtype=config.DTYPE,
                                  device=dev)
@@ -848,21 +873,19 @@ class BlockKKT:
                     jx.reshape(Bn, napps, fam["nout"], nin), hx)
 
         for fam, cc in zip(self._eq, econ):
-            fx, g, jx, hx = one(fam, cc, lamE[:, fam["rows_t"]])
+            fx, g, jx, hx = one(fam, cc, lamE)
             famvals["jx_eq"].append(jx)
             famvals["hx_eq"].append(hx)
             ce.append(fx)
             g2d.append(g)
         for fam, cc in zip(self._iq, icon):
-            fx, g, jx, hx = one(fam, cc, lamI[:, fam["rows_t"]])
+            fx, g, jx, hx = one(fam, cc, lamI)
             famvals["jx_iq"].append(jx)
             famvals["hx_iq"].append(hx)
             ci.append(fx)
             g2d.append(g)
         for fam, cc in zip(self._obj, ocon):
-            ones = torch.ones((Bn, fam["napps"], 1), dtype=config.DTYPE,
-                              device=dev)
-            fx, g, jx, hx = one(fam, cc, ones)
+            fx, g, jx, hx = one(fam, cc, None)
             obj = obj + fx.sum(-1)
             famvals["hx_obj"].append(sigma * hx if want_hess is True
                                      and hx is not None else hx)

@@ -17,6 +17,9 @@ import torch
 from torch.func import jacfwd, vjp, vmap
 
 from .. import config
+from ..Utils import span
+
+_VALUE_PASS = "asset.nlp.value_pass"       # profiler range (`Utils.span`)
 
 __all__ = ["IndexedFunction", "NonLinearProgram"]
 
@@ -204,18 +207,20 @@ class NonLinearProgram:
         ocon, econ, icon = consts
         Bn, dev = x.shape[0], self.device
         nobj, neq = len(self.objectives), len(self.eqcons)
-        vals = [fval(x[:, vidx].reshape(-1, vidx.shape[1]),
-                     cc.repeat(Bn, 1)).reshape(Bn, -1)
-                for (fval, vidx), cc in zip(self._val, ocon + econ + icon)]
-        obj = torch.zeros((Bn,), dtype=config.DTYPE, device=dev)
-        for v in vals[:nobj]:
-            obj = obj + v.sum(-1)
 
         def cat(parts, m):
             return torch.cat(parts, 1) if parts else \
                 torch.zeros((Bn, m), dtype=config.DTYPE, device=dev)
-        cE = cat(vals[nobj:nobj + neq], self.numEq)
-        cI = cat(vals[nobj + neq:], self.numIq)
+        with span(_VALUE_PASS):
+            vals = [fval(x[:, vidx].reshape(-1, vidx.shape[1]),
+                         cc.repeat(Bn, 1)).reshape(Bn, -1)
+                    for (fval, vidx), cc in zip(self._val,
+                                                ocon + econ + icon)]
+            obj = torch.zeros((Bn,), dtype=config.DTYPE, device=dev)
+            for v in vals[:nobj]:
+                obj = obj + v.sum(-1)
+            cE = cat(vals[nobj:nobj + neq], self.numEq)
+            cI = cat(vals[nobj + neq:], self.numIq)
         return obj, cE, cI
 
     def eval_obj_cons(self, x):

@@ -130,10 +130,7 @@ class PSIOPT:
         self.LateCallBack = None
         # the fused loop for block KKTs; False: the host loop
         self.UseFused = True
-        # time the stage pieces at each fused pass's final iterate and
-        # split the pass's time into LastFuncTime / LastKKTTime by them
-        # (LastStageTimes, seconds); None: on for the CPU, off on CUDA
-        self.MeasureStageTimes = None
+        # `measure_stage_times`' last probe (seconds by stage)
         self.LastStageTimes = None
         # start from the previous solve's multipliers and slacks
         self.WarmStart = False
@@ -142,10 +139,14 @@ class PSIOPT:
         self.LastObjVal = 0.0
         self.LastIterNum = 0
         self.LastTotalTime = 0.0
+        # host seconds of function evaluations (family AD and value
+        # passes) and of the KKT (assembly, factor, solve) over the passes
+        # of the last solve; timed inside the loop on either path
         self.LastFuncTime = 0.0
         self.LastKKTTime = 0.0
-        # the last fused pass: outer iterations, host reads and
-        # factorizations (`fused.build_fused_alg` stats)
+        # the last fused pass: outer iterations, host reads,
+        # factorizations, K1 launches and host seconds by stage
+        # (`fused.build_fused_alg` stats)
         self.LastFusedStats = None
         self.ConvergeFlag = ConvergenceFlags.NOTCONVERGED
         self.LastEqLmults = None
@@ -380,27 +381,14 @@ class PSIOPT:
             self._fused_cache = (key, build_fused_alg(self.kkt, opts, mode))
         fn = self._fused_cache[1]
         sigma = 0.0 if mode in ("SOE", "OPTNO") else self.ObjScale
-        tq0 = time.perf_counter()
         out = fn(x[None], s[None], lamE[None], lamI[None], self.initMu,
                  self.nlp.consts_dev())
         (x, s, lamE, lamI, Mu, flag, niters, infos,
          bx, bs_, blE, blI) = (o[0] for o in out)
         flag, niters = int(flag), int(niters)
-        elapsed = time.perf_counter() - tq0
-        self.LastFusedStats = dict(fn.stats)
-        mst = self.MeasureStageTimes
-        if mst is None:
-            mst = self.nlp.device.type == "cpu"
-        st = self.measure_stage_times(x, s, lamE, lamI, float(Mu), sigma) \
-            if mst else None
-        if st:
-            func = st["func_ad"] + st["value_pass"]
-            kkt_t = st["assembly"] + st["factor"] + st["solve"]
-            tot = max(func + kkt_t, 1e-12)
-            self.LastFuncTime += elapsed * func / tot
-            self.LastKKTTime += elapsed * kkt_t / tot
-        else:
-            self.LastKKTTime += elapsed
+        st = self.LastFusedStats = dict(fn.stats)
+        self.LastFuncTime += st.get("ad_s", 0.0) + st.get("ls_s", 0.0)
+        self.LastKKTTime += st.get("kkt_s", 0.0)
         infos = _np(infos[:max(niters, 1)])
         if self.ReturnBest and flag not in (ConvergenceFlags.CONVERGED,
                                             ConvergenceFlags.ACCEPTABLE):
@@ -433,7 +421,9 @@ class PSIOPT:
         iterate (family AD with Hessians, block assembly, regularize +
         factor, solve, line-search value pass): a warm call, then the mean
         of 3, each ending in a device synchronize.  Returns the dict (also
-        stored in LastStageTimes); None for a dense KKT."""
+        stored in LastStageTimes); None for a dense KKT.  A probe outside
+        any solve: the fused loop's own stage seconds are in
+        LastFusedStats."""
         if not isinstance(self.kkt, BLOCK_BACKENDS):
             return None
         kkt, nlp = self.kkt, self.nlp

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import config
+from .Utils import span
 from .Solvers.fused import _maxstep, _sigma_diag, _slack_reset, \
     build_fused_ensemble
 
@@ -159,32 +160,34 @@ def solve_ensemble(phase, perturb_states=None, mesh=None, mode="OPT",
     dev = nlp.device
     fn = build_fused_ensemble(kkt, opt._opts_snapshot(), mode, mesh=mesh)
 
-    if x0s is None:
-        base = np.asarray(phase.makeSolverInput())
-        x0s = np.stack([base + np.asarray(p) for p in perturb_states])
-    else:
-        x0s = np.stack([np.asarray(x) for x in x0s])
-    xB = config.tensor(x0s, dev)
-    B = xB.shape[0]
+    with span("asset.ensemble.start"):
+        if x0s is None:
+            base = np.asarray(phase.makeSolverInput())
+            x0s = np.stack([base + np.asarray(p) for p in perturb_states])
+        else:
+            x0s = np.stack([np.asarray(x) for x in x0s])
+        xB = config.tensor(x0s, dev)
+        B = xB.shape[0]
 
-    # per-scenario slacks and multipliers, as PSIOPT's start of a solve
-    consts = nlp.consts_dev()
-    mu0 = float(opt.initMu)
-    _, _, cI = nlp.eval_obj_cons_impl(xB, consts)
-    sB = torch.where(cI < -opt.BoundPush, cI.abs(),
-                     torch.full_like(cI, opt.BoundPush))
-    # a true division, as PSIOPT's start (a number over a tensor is a
-    # reciprocal and a product in torch, one rounding more)
-    lamIB = torch.full_like(sB, mu0) / sB
-    lamEB = torch.zeros((B, nlp.numEq), dtype=config.DTYPE, device=dev)
+        # per-scenario slacks and multipliers, as PSIOPT's start of a solve
+        consts = nlp.consts_dev()
+        mu0 = float(opt.initMu)
+        _, _, cI = nlp.eval_obj_cons_impl(xB, consts)
+        sB = torch.where(cI < -opt.BoundPush, cI.abs(),
+                         torch.full_like(cI, opt.BoundPush))
+        # a true division, as PSIOPT's start (a number over a tensor is a
+        # reciprocal and a product in torch, one rounding more)
+        lamIB = torch.full_like(sB, mu0) / sB
+        lamEB = torch.zeros((B, nlp.numEq), dtype=config.DTYPE, device=dev)
 
     x, s, lamE, lamI, _, flag, niters, infos = fn(
         xB, sB, lamEB, lamIB, mu0, consts)[:8]
     opt.LastFusedStats = dict(fn.stats)
-    objs, _, _ = nlp.eval_obj_cons_impl(x, consts)
 
     def np_(t):
         return t.detach().cpu().numpy()
-    return dict(x=np_(x), flags=np_(flag), iters=np_(niters),
-                objs=np_(objs), infos=np_(infos), lamE=np_(lamE),
-                lamI=np_(lamI), s=np_(s))
+    with span("asset.ensemble.results"):
+        objs, _, _ = nlp.eval_obj_cons_impl(x, consts)
+        return dict(x=np_(x), flags=np_(flag), iters=np_(niters),
+                    objs=np_(objs), infos=np_(infos), lamE=np_(lamE),
+                    lamI=np_(lamI), s=np_(s))

@@ -214,23 +214,33 @@ def test_return_best_under_iteration_cap():
 
 def test_callbacks_timing_and_table(capsys):
     """LateCallBack once per fused pass (solve_optimize: SOE then OPT),
-    EarlyCallBack once per host-loop iteration; the CPU default measures
-    the stage times; PrintLevel 0 prints the iterate table."""
+    EarlyCallBack once per host-loop iteration; the fused loop times its
+    stages in the loop and LastFuncTime / LastKKTTime are their totals;
+    PrintLevel 0 prints the iterate table."""
     p = build_brachistochrone(tast, "LGL3", 8)
     opt = p.optimizer
     opt.set_PrintLevel(2)
-    late, early = [], []
-    opt.LateCallBack, opt.EarlyCallBack = late.append, early.append
+    late, early, passes = [], [], []
+
+    def on_pass(d):
+        late.append(d)
+        passes.append(dict(opt.LastFusedStats))
+    opt.LateCallBack, opt.EarlyCallBack = on_pass, early.append
     assert p.solve_optimize() == 0
     assert [d["mode"] for d in late] == ["SOE", "OPT"]
     assert sum(d["iters"] for d in late) == opt.LastIterNum
     assert all(d["infos"].shape == (d["iters"], 9) for d in late)
     assert early == []
-    st = opt.LastStageTimes
-    assert set(st) == {"func_ad", "assembly", "factor", "solve",
-                       "value_pass"}
-    assert all(v > 0 for v in st.values())
-    assert opt.LastFuncTime > 0 and opt.LastKKTTime > 0
+    for st in passes:
+        assert {"ad_s", "kkt_s", "ls_s", "read_s", "loop_s",
+                "k1_launches"} <= set(st)
+        assert all(st[k] > 0 for k in ("ad_s", "kkt_s", "loop_s"))
+    assert passes[-1]["ls_s"] > 0        # OPT's line search (SOE has none)
+    assert opt.LastFuncTime == pytest.approx(
+        sum(st["ad_s"] + st["ls_s"] for st in passes), rel=1e-12)
+    assert opt.LastKKTTime == pytest.approx(
+        sum(st["kkt_s"] for st in passes), rel=1e-12)
+    assert opt.LastFuncTime + opt.LastKKTTime <= opt.LastTotalTime
     stats = opt.LastFusedStats
     assert stats["iterations"] == late[-1]["iters"]
     assert stats["syncs"] >= 2 * stats["iterations"]
