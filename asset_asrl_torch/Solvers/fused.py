@@ -64,7 +64,8 @@ _LINE_SEARCH = "asset.fused.line_search"
 _READ = "asset.fused.read"
 # the run's counters (`fn.stats`), reset at each call: counts, and host
 # seconds by stage
-_COUNTS = ("iterations", "syncs", "factorizations", "k1_launches")
+_COUNTS = ("iterations", "syncs", "factorizations", "k1_launches",
+           "ad_replays", "ad_eager")
 _STAGES = ("ad_s", "kkt_s", "ls_s", "read_s", "loop_s")
 
 
@@ -148,8 +149,9 @@ def build_fused_alg(kkt, opts, mode):
     has a leading lane axis (x (B, n), ...; flag, niters, Mu (B,); infos
     (B, MaxIters, 9)); one problem is B = 1.  fn.stats holds the last
     call's outer iterations, host reads ("syncs"), factorizations, K1
-    launches ("k1_launches") and the host seconds of its stages (module
-    docstring)."""
+    launches ("k1_launches"), family-AD passes replayed from a CUDA graph
+    ("ad_replays") and run eagerly ("ad_eager"), and the host seconds of
+    its stages (module docstring)."""
     nlp = kkt.nlp
     mE, mI = nlp.numEq, nlp.numIq
     soe = mode in ("SOE", "OPTNO")
@@ -492,6 +494,7 @@ def build_fused_alg(kkt, opts, mode):
     def run(x, s, lamE, lamI, Mu0, consts):
         t0 = time.perf_counter()
         k1_0 = sum(gj_inverse.shapes.values())
+        ad0 = dict(kkt.ad_counts)
         reset_stats()
         st = make_init(x, s, lamE, lamI, Mu0, consts)
         while read((st["flag"] == _NOTCONV) & (st["it"] < MaxIters)):
@@ -499,6 +502,8 @@ def build_fused_alg(kkt, opts, mode):
                 st = iteration(st, consts)
             stats["iterations"] += 1
         stats["k1_launches"] = sum(gj_inverse.shapes.values()) - k1_0
+        for k in ("ad_replays", "ad_eager"):
+            stats[k] = kkt.ad_counts[k] - ad0[k]
         stats["loop_s"] = time.perf_counter() - t0
         return (st["x"], st["s"], st["lamE"], st["lamI"], st["Mu"],
                 st["flag"], st["it"], st["infos"], st["best_x"],

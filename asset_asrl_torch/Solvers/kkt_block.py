@@ -28,6 +28,13 @@ and solve together, every BCR level of every lane in one K1 launch.  One
 problem is B = 1 of the same code; only the host loop's public methods
 (`eval_resid`, `factor`, `solve`, `iq_matvec`, `iq_rmatvec`) take it
 without the lane axis.
+
+On a card the family AD is replayed from a CUDA graph: its eager
+`torch.func` pass launches thousands of small kernels whose shapes depend
+only on the lane count, the Hessian mode, `sigma` and the consts' shapes,
+so `BlockKKT._eval_core` captures it once per such key and replays it
+(`_ADGraph`).  A key whose capture fails (a host read inside a family)
+stays eager for the life of the object; on the CPU every pass is eager.
 """
 
 from __future__ import annotations
@@ -630,6 +637,63 @@ def _lanes(x):
 
 
 # ===========================================================================
+# The family AD as a CUDA graph
+# ===========================================================================
+
+def _ad_inputs(x, lamE, lamI, consts):
+    """Every tensor input of one family-AD pass, in a fixed order."""
+    return [x, lamE, lamI] + [c for group in consts for c in group]
+
+
+def _copy_out(tree):
+    """A copy of every tensor of `tree` (tuples, lists, dicts, None)."""
+    if isinstance(tree, dict):
+        return {k: _copy_out(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copy_out(v) for v in tree)
+    return None if tree is None else tree.clone()
+
+
+class _ADGraph:
+    """One family-AD pass (`BlockKKT._eval_eager`) captured as a CUDA graph
+    over static input buffers.  A call copies its inputs into them,
+    replays, and returns copies of the static outputs, so no tensor a
+    caller keeps (the factor's `iq_jx`) is overwritten by the next
+    replay.  The graphs of one BlockKKT share one memory pool: a later
+    capture may place its outputs in an earlier graph's scratch memory,
+    which that graph's replays overwrite, and the copies taken right
+    after each replay make that harmless."""
+
+    def __init__(self, kkt, x, lamE, lamI, sigma, consts, want_hess):
+        def static(t):
+            return t.clone(memory_format=torch.contiguous_format)
+        sx, slE, slI = static(x), static(lamE), static(lamI)
+        sconsts = tuple(tuple(static(c) for c in group) for group in consts)
+        self.inputs = _ad_inputs(sx, slE, slI, sconsts)
+
+        def body():
+            return kkt._eval_eager(sx, slE, slI, sigma, sconsts, want_hess)
+
+        # warm-up on a side stream (lazy caches, library handles), then
+        # the capture
+        main = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            body()
+        main.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=kkt._ad_pool):
+            self.outputs = body()
+
+    def __call__(self, x, lamE, lamI, consts):
+        for dst, src in zip(self.inputs, _ad_inputs(x, lamE, lamI, consts)):
+            dst.copy_(src)
+        self.graph.replay()
+        return _copy_out(self.outputs)
+
+
+# ===========================================================================
 # BlockKKT
 # ===========================================================================
 
@@ -648,12 +712,23 @@ class BlockKKT:
     (gather-table assembly of diag, lower, B, C), `_factor_blocks_impl`
     (regularize + block cyclic reduction, delta per lane), `_factor_impl`,
     `_solve_impl`, `_iq_matvec_impl`, `_iq_rmatvec_impl`.
+
+    `ad_counts` counts the family-AD passes: graphs captured, captures
+    that failed, passes replayed and passes run eagerly.
     """
 
     def __init__(self, nlp, node_of_var, probe_seed=7, x0=None):
         nlp.freeze()
         self.nlp = nlp
         self.device = dev = nlp.device
+        # the family AD's graphs by key (`_eval_core`; None: eager), the
+        # capture step (None: every pass eager) and the graphs' memory pool
+        self._ad_graphs = {}
+        cuda = torch.device(dev).type == "cuda"
+        self._ad_capture = _ADGraph if cuda else None
+        self._ad_pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.ad_counts = dict(ad_captures=0, ad_capture_failures=0,
+                              ad_replays=0, ad_eager=0)
 
         # ---- structural sparsity of every family: |J| at two points near
         # the initial trajectory, OR-ed over apps.  Hessian sparsity is
@@ -831,6 +906,32 @@ class BlockKKT:
 
     # --------------------------------------------------- family evaluation
     def _eval_core(self, x, lamE, lamI, sigma, consts, want_hess):
+        """`_eval_eager`'s (obj, cE, cI, rd, famvals), replayed from a CUDA
+        graph captured at the first pass of each key (x's shape and
+        device, `want_hess`, `sigma`, the consts' shapes); eager on the
+        CPU and for a key whose capture failed."""
+        graph = None
+        if self._ad_capture is not None:
+            key = (x.device, tuple(x.shape), want_hess, float(sigma),
+                   tuple(tuple(c.shape) for group in consts for c in group))
+            if key not in self._ad_graphs:
+                try:
+                    self._ad_graphs[key] = self._ad_capture(
+                        self, x, lamE, lamI, sigma, consts, want_hess)
+                    self.ad_counts["ad_captures"] += 1
+                except RuntimeError:
+                    # a host read or copy inside a family cannot be
+                    # captured
+                    self._ad_graphs[key] = None
+                    self.ad_counts["ad_capture_failures"] += 1
+            graph = self._ad_graphs[key]
+        if graph is None:
+            self.ad_counts["ad_eager"] += 1
+            return self._eval_eager(x, lamE, lamI, sigma, consts, want_hess)
+        self.ad_counts["ad_replays"] += 1
+        return graph(x, lamE, lamI, consts)
+
+    def _eval_eager(self, x, lamE, lamI, sigma, consts, want_hess):
         """One vmapped pass over every family: values + Jacobians (+
         adjoint Hessians when `want_hess` is True; structural zeros when it
         is "zeros", the first-order passes), assembled into obj/cE/cI/rd by

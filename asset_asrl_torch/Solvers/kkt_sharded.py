@@ -329,6 +329,7 @@ class ShardedBlockKKT:
             self.axis = axis
             self.D = mesh.shape[axis]
         self.nlp, self.bs, self.device = base.nlp, base.bs, base.device
+        self.ad_counts = base.ad_counts
         self._perm = base._perm
         self._L = max(2, -(-base.bs.K // self.D))
 

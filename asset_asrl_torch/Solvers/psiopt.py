@@ -145,8 +145,8 @@ class PSIOPT:
         self.LastFuncTime = 0.0
         self.LastKKTTime = 0.0
         # the last fused pass: outer iterations, host reads,
-        # factorizations, K1 launches and host seconds by stage
-        # (`fused.build_fused_alg` stats)
+        # factorizations, K1 launches, family-AD passes replayed and run
+        # eagerly, and host seconds by stage (`fused.build_fused_alg` stats)
         self.LastFusedStats = None
         self.ConvergeFlag = ConvergenceFlags.NOTCONVERGED
         self.LastEqLmults = None
