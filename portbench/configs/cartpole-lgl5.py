@@ -35,6 +35,9 @@ CONFIG = {
 # keys cut in scale from the source: none (nsegs is raised, see ASSUMED)
 REDUCED = []
 
+# the keys of CONFIG a CPU test changes: a mesh the CPU solves in seconds
+TEST_OVERRIDES = {"nsegs": 16}
+
 ASSUMED = {
     "nsegs": "5000 segments (10,001 nodes; KKT blocks (K, W, b) = (5001, "
              "24, 2)) where the documentation solves 64 (28 ms on a "

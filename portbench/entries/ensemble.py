@@ -6,6 +6,9 @@ import numpy as np
 
 from portbench.entries.common import make_phase
 
+# the lanes of one call in a CPU test
+TEST_LANES = 4
+
 
 class Driver:
     unit_name = "portbench.ensemble"
@@ -14,7 +17,9 @@ class Driver:
         from asset_asrl_torch.parallel import solve_ensemble
         self.solve_ensemble = solve_ensemble
         self.phase, self.base = make_phase(ast, config, cfg)
-        self.sigma = float(self.phase.optimizer.ObjScale)
+        self.optimizer = self.phase.optimizer
+        self.nlp = self.phase._nlp
+        self.sigma = float(self.optimizer.ObjScale)
 
     def unit(self, starts):
         res = self.solve_ensemble(self.phase, x0s=starts)

@@ -10,6 +10,9 @@ import numpy as np
 
 from portbench.entries.common import make_phase
 
+# the lanes of one unit in a CPU test: the traffic's own (one)
+TEST_LANES = None
+
 
 class Driver:
     unit_name = "portbench.solve"
@@ -18,8 +21,9 @@ class Driver:
         if int(traffic["lanes"]) != 1:
             raise ValueError("the solve entry takes one lane")
         self.phase, self.base = make_phase(ast, config, cfg)
-        self.opt = self.phase.optimizer
-        self.sigma = float(self.opt.ObjScale)
+        self.optimizer = self.phase.optimizer
+        self.nlp = self.phase._nlp
+        self.sigma = float(self.optimizer.ObjScale)
         self.ast = ast
 
     def unit(self, starts):
@@ -27,7 +31,7 @@ class Driver:
         fused loop's counters."""
         self.phase.collectSolverOutput(starts[0])
         flag = self.phase.optimize()
-        opt = self.opt
+        opt = self.optimizer
         st = opt.LastFusedStats or {}
         return dict(x=self.phase.makeSolverInput()[None],
                     lamE=np.asarray(opt.LastEqLmults)[None],
@@ -41,8 +45,8 @@ class Driver:
         """`PSIOPT.measure_stage_times` at the last solve's final iterate:
         seconds of family AD, assembly, factor, solve and the value pass
         (mean of 3 after a warm call, each ending in a synchronize)."""
-        opt, cfg = self.opt, self.ast.config
-        dev = self.phase._nlp.device
+        opt, cfg = self.optimizer, self.ast.config
+        dev = self.nlp.device
         state = [cfg.tensor(a, dev) for a in (
             self.phase.makeSolverInput(), opt.LastSlacks, opt.LastEqLmults,
             opt.LastIqLmults)]

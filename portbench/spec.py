@@ -4,11 +4,41 @@ Every piece is a file of its own under `portbench/`, so that a later
 change adds a cell, a configuration, an entry or a metric by adding files
 and `BENCHMARK.json` entries, and edits none:
 
-    workloads/<cell>.json    traffic, entry and correctness limits
-    configs/<config>.py      CONFIG, SOURCE, REDUCED, ASSUMED, build()
-    entries/<entry>.py       Driver: the unit of work the window repeats
+    workloads/<cell>.json    config, entry, why, traffic, trace, limits
+    configs/<config>.py      CONFIG, SOURCE, REDUCED, ASSUMED,
+                             TEST_OVERRIDES, build(ast, cfg)
+    entries/<entry>.py       TEST_LANES, Driver: the unit the window repeats
     metrics/<metric>.py      read(run) -> a number, or None
     reference/<config>.py    problem(cfg, X): the plain reference
+
+A configuration's `CONFIG` is the problem as it is run, and
+`TEST_OVERRIDES` the keys of it that a CPU test changes (a mesh the CPU
+solves in seconds).  An entry's `TEST_LANES` is the lanes of one unit in
+a CPU test, or None for the traffic's own.  `build(ast, cfg)` poses the
+problem with the port's public API, given as `ast`, so that the file
+imports no part of the program.
+
+`Driver(ast, config, cfg, traffic)` is all that the harness and its tests
+know of a problem.  It exposes:
+
+    unit_name    the name of the profiler range around one unit
+    unit(starts) solve from starts (lanes, n); returns the answers x,
+                 lamE, lamI (lanes, ...), obj, flag, iters (lanes,) and
+                 stats (the fused loop's counters of the unit)
+    base         the start (n,) that the traffic perturbs
+    sigma        the objective's scale in the Lagrangian
+    optimizer    the PSIOPT instance that `unit` runs
+    nlp          the transcribed problem's NonLinearProgram
+
+and optionally `probe()`, stage seconds read after the window.  A Driver
+may hold a Phase, an OptimalControlProblem or anything else: nothing
+outside its entry reaches the problem but through these names.
+
+A configuration joins by new files and entries alone: its config file
+and reference, a workload file for each cell (and an entry file where no
+entry fits), and in `BENCHMARK.json` the configuration, each cell, and
+each cell appended to the `workloads` of the end-to-end metric it reports
+and of the per-layer metrics it gives.
 """
 
 import importlib.util

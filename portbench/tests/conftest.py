@@ -8,17 +8,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# the small sizes at which a cell runs on the CPU
-SMALL = {"cartpole-lgl5": ({"nsegs": 16}, None)}
-LANES = {"ensemble": 4, "solve": None}
-
 
 def small(name):
-    """(overrides, lanes) of cell `name` at a CPU test's size."""
+    """(overrides, lanes) of cell `name` at a CPU test's size: its
+    configuration's TEST_OVERRIDES and its entry's TEST_LANES."""
     from portbench import spec
     cell = spec.cell(spec.bench(ROOT), name)
-    overrides, _ = SMALL[cell["config"]]
-    return overrides, LANES[spec.workload(name)["entry"]]
+    config = spec.load_module("configs", cell["config"])
+    entry = spec.load_module("entries", spec.workload(name)["entry"])
+    return dict(config.TEST_OVERRIDES), entry.TEST_LANES
 
 
 @pytest.fixture

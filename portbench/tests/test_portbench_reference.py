@@ -1,55 +1,59 @@
 """Each plain reference against the port's CPU solve at a small mesh: the
 same constraints in the same order, the solution accepted, a perturbed
-one rejected; and the roofline's K1 bound against PERF.md."""
+one rejected; and the roofline's K1 bound against PERF.md.  The problem
+is reached only through its first cell's Driver (`spec.py`)."""
 
 import numpy as np
 import pytest
 import torch
 
-from conftest import ROOT, SMALL
-from portbench import judge, roofline, spec
+from conftest import ROOT, small
+from portbench import judge, roofline, run, spec
 
-CONFIGS = sorted(SMALL)
 B = spec.bench(ROOT)
+CONFIGS = [c["name"] for c in B["configs"]]
+
+
+def first_cell(config):
+    return next(w["name"] for w in B["workloads"] if w["config"] == config)
 
 
 def limits(config):
     """The limits of the configuration's first cell."""
-    cell = next(w for w in B["workloads"] if w["config"] == config)
-    return spec.workload(cell["name"])["limits"]
+    return spec.workload(first_cell(config))["limits"]
 
 
 @pytest.fixture(scope="module")
 def solved():
-    """{config: (cfg, reference, phase)} solved by the port on the CPU."""
+    """solved(config) -> (cfg, reference, driver, answers): the
+    configuration's first cell's Driver at a CPU test's size, after one
+    unit from its base, and lane 0 of that unit's answers (solved once a
+    configuration, on first use)."""
     import asset_asrl_torch as ast
     ast.config.use_device("cpu")
-    out = {}
-    for name in CONFIGS:
-        config = spec.load_module("configs", name)
-        cfg = dict(config.CONFIG, **SMALL[name][0])
-        phase = config.build(ast, cfg)
-        phase.optimizer.set_PrintLevel(3)
-        assert phase.optimize() == 0
-        out[name] = (cfg, spec.load_module("reference", name), phase)
-    return out
+    done = {}
 
-
-def answers(phase, x=None):
-    opt = phase.optimizer
-    x = phase.makeSolverInput() if x is None else x
-    return dict(x=x[None], lamE=opt.LastEqLmults[None],
-                lamI=opt.LastIqLmults[None],
-                obj=np.array([opt.LastObjVal]), flag=np.zeros(1),
-                sigma=opt.ObjScale)
+    def get(name):
+        if name not in done:
+            first = first_cell(name)
+            cell = run.Cell(first, "cpu", *small(first))
+            d = cell.driver
+            out = d.unit(d.base[None])
+            assert out["flag"][0] == 0
+            ans = {k: np.asarray(out[k][:1])
+                   for k in ("x", "lamE", "lamI", "obj", "flag")}
+            ans["sigma"] = d.sigma
+            done[name] = (cell.cfg, cell.ref, d, ans)
+        return done[name]
+    return get
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_reference_states_the_transcription(solved, name):
-    cfg, ref, phase = solved[name]
-    x = phase.makeSolverInput()
+    cfg, ref, driver, ans = solved(name)
+    x = ans["x"][0]
     obj, eq, iq = ref.problem(cfg, torch.tensor(x[None]))
-    pobj, peq, piq = phase._nlp.eval_obj_cons(torch.tensor(x))
+    pobj, peq, piq = driver.nlp.eval_obj_cons(torch.tensor(x))
     assert eq.shape[1] == peq.shape[0] and iq.shape[1] == piq.shape[0]
     assert (eq[0] - peq).abs().max() < 1e-12
     assert (iq[0] - piq).abs().max() < 1e-12
@@ -58,21 +62,20 @@ def test_reference_states_the_transcription(solved, name):
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_reference_accepts_the_solution(solved, name):
-    cfg, ref, phase = solved[name]
-    _, ok = judge.checks(judge.readings(ref, cfg, answers(phase), "cpu"),
-                         limits(name))
+    cfg, ref, _, ans = solved(name)
+    _, ok = judge.checks(judge.readings(ref, cfg, ans, "cpu"), limits(name))
     assert ok
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 @pytest.mark.parametrize("scale", [1e-4, 1e-6])
 def test_reference_rejects_a_perturbed_solution(solved, name, scale):
-    cfg, ref, phase = solved[name]
-    x = phase.makeSolverInput()
+    cfg, ref, _, ans = solved(name)
+    x = ans["x"][0]
     x = x * (1.0 + scale * np.random.default_rng(3).standard_normal(x.size))
     lim = limits(name)
-    c, ok = judge.checks(judge.readings(ref, cfg, answers(phase, x), "cpu"),
-                         lim)
+    c, ok = judge.checks(judge.readings(ref, cfg, dict(ans, x=x[None]),
+                                        "cpu"), lim)
     assert not ok and c["feas"]["value"] > lim["feas"]
 
 
@@ -82,9 +85,8 @@ def test_reference_rejects_wrong_multipliers(solved, name, fault, number):
     """The solution with its inequality multipliers negated (wrong sign)
     or 1e3 times too large (not complementary) is rejected by that
     number."""
-    cfg, ref, phase = solved[name]
-    ans = answers(phase)
-    ans["lamI"] = fault * ans["lamI"]
+    cfg, ref, _, ans = solved(name)
+    ans = dict(ans, lamI=fault * ans["lamI"])
     lim = limits(name)
     c, ok = judge.checks(judge.readings(ref, cfg, ans, "cpu"), lim)
     assert not ok and c[number]["value"] > lim[number]
@@ -94,8 +96,8 @@ def test_reference_rejects_wrong_multipliers(solved, name, fault, number):
 def test_control_fails(solved, name):
     """The solution rounded to float32, its objective the reference's in
     float32, comes out not correct."""
-    cfg, ref, phase = solved[name]
-    ans = judge.control(ref, cfg, answers(phase), "cpu")
+    cfg, ref, _, ans = solved(name)
+    ans = judge.control(ref, cfg, ans, "cpu")
     lim = limits(name)
     c, ok = judge.checks(judge.readings(ref, cfg, ans, "cpu"), lim)
     assert not ok and c["obj_gap"]["value"] > 10 * lim["obj_gap"]

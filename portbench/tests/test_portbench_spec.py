@@ -4,7 +4,10 @@ files found by name."""
 import json
 import os
 import shutil
+import subprocess
+import sys
 
+import numpy as np
 import pytest
 
 from conftest import ROOT, small
@@ -124,3 +127,130 @@ def test_a_per_layer_metric_must_list_its_cells():
     del b["per_layer"][0]["workloads"]
     with pytest.raises(ValueError):
         spec.per_layer(b, CELLS[0])
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_driver_keeps_the_contract(name):
+    """The cell's entry at its CPU test size exposes what `spec.py` names,
+    and its configuration's TEST_OVERRIDES change keys of its CONFIG."""
+    from portbench import run
+    cell = spec.cell(B, name)
+    config = spec.load_module("configs", cell["config"])
+    assert config.TEST_OVERRIDES and \
+        set(config.TEST_OVERRIDES) <= set(config.CONFIG)
+    entry = spec.load_module("entries", spec.workload(name)["entry"])
+    assert entry.TEST_LANES is None or entry.TEST_LANES >= 1
+    d = run.Cell(name, "cpu", *small(name)).driver
+    assert isinstance(d.unit_name, str) and callable(d.unit)
+    assert isinstance(d.sigma, float)
+    assert d.optimizer.nlp is d.nlp
+    assert np.asarray(d.base).shape == (d.nlp.numPrimal,)
+
+
+# a configuration, its reference, an entry and a cell that join a copy of
+# the benchmark by new files alone: the cart-pole under another name, run
+# by an entry that holds its problem as `problem` and has no `phase`
+TWIN = "cartpole_twin"
+TWIN_CELL = TWIN + ".solve"
+TWIN_ENTRY = '''"""A solve entry that holds its problem as `problem`."""
+
+import numpy as np
+
+TEST_LANES = None
+
+
+class Driver:
+    unit_name = "portbench.twin"
+
+    def __init__(self, ast, config, cfg, traffic):
+        self.problem = config.build(ast, cfg)
+        self.optimizer = self.problem.optimizer
+        self.optimizer.set_PrintLevel(3)
+        self.nlp = self.optimizer.nlp
+        self.base = self.problem.makeSolverInput()
+        self.sigma = float(self.optimizer.ObjScale)
+        self.ast = ast
+
+    def unit(self, starts):
+        self.problem.collectSolverOutput(starts[0])
+        flag = self.problem.optimize()
+        opt = self.optimizer
+        return dict(x=self.problem.makeSolverInput()[None],
+                    lamE=np.asarray(opt.LastEqLmults)[None],
+                    lamI=np.asarray(opt.LastIqLmults)[None],
+                    obj=np.array([opt.LastObjVal]),
+                    flag=np.array([int(flag)]),
+                    iters=np.array([opt.LastIterNum]),
+                    stats=dict(opt.LastFusedStats or {}))
+
+    def probe(self):
+        opt, cfg = self.optimizer, self.ast.config
+        state = [cfg.tensor(a, self.nlp.device) for a in (
+            self.problem.makeSolverInput(), opt.LastSlacks,
+            opt.LastEqLmults, opt.LastIqLmults)]
+        return dict(opt.measure_stage_times(*state, opt.initMu,
+                                            opt.ObjScale))
+'''
+
+
+def _files(tree):
+    """{relative path: bytes} of the benchmark's files under `tree`."""
+    out = {}
+    for d, dirs, names in os.walk(tree):
+        dirs[:] = [x for x in dirs if x not in (".cache", "__pycache__")]
+        for n in names:
+            p = os.path.join(d, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, tree)] = f.read()
+    return out
+
+
+def test_adding_a_configuration_by_files_alone(tmp_path):
+    """A copy of the benchmark with one more configuration, reference,
+    entry and workload file, and their BENCHMARK.json entries: the copy's
+    own tests of the new names pass, and no file of the benchmark was
+    edited."""
+    src = os.path.join(ROOT, "portbench")
+    tree = tmp_path / "portbench"
+    shutil.copytree(src, tree,
+                    ignore=shutil.ignore_patterns(".cache", "__pycache__"))
+    os.symlink(os.path.join(ROOT, "asset_asrl_torch"),
+               tmp_path / "asset_asrl_torch")
+    base = next(c for c in CELLS if spec.workload(c)["entry"] == "solve")
+    cfg_name = spec.cell(B, base)["config"]
+    # overrides of its own: the original's mesh (the inflated-multiplier
+    # fault shows in `compl` only at some meshes) and a wider cart bound
+    text = (tree / "configs" / f"{cfg_name}.py").read_text()
+    (tree / "configs" / f"{TWIN}.py").write_text(
+        text + "\nTEST_OVERRIDES = dict(TEST_OVERRIDES, x_max=2.5)\n")
+    shutil.copy(tree / "reference" / f"{cfg_name}.py",
+                tree / "reference" / f"{TWIN}.py")
+    (tree / "entries" / "twin.py").write_text(TWIN_ENTRY)
+    wl = dict(spec.workload(base), config=TWIN, entry="twin",
+              why="the cart-pole under another name, re-solved by an "
+                  "entry with no phase")
+    (tree / "workloads" / f"{TWIN_CELL}.json").write_text(json.dumps(wl))
+    b = json.loads(json.dumps(B))
+    c = next(c for c in b["configs"] if c["name"] == cfg_name)
+    b["configs"].append(dict(c, name=TWIN,
+                             file=f"portbench/configs/{TWIN}.py"))
+    b["workloads"].append(dict(name=TWIN_CELL, config=TWIN, traffic="solve",
+                               chips=1, why=wl["why"]))
+    for m in b["end_to_end"] + b["per_layer"]:
+        if base in m.get("workloads", []):
+            m["workloads"].append(TWIN_CELL)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b, indent=1))
+
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", str(tree / "tests"), "-v",
+         "-p", "no:cacheprovider", "-p", "no:randomly", "-k", TWIN],
+        cwd=tmp_path, capture_output=True, text=True, timeout=1200)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+    passed = {ln.split("::")[0].split("/")[-1]
+              for ln in out.stdout.splitlines() if " PASSED" in ln}
+    assert passed == {"test_portbench_reference.py", "test_portbench_run.py",
+                      "test_portbench_spec.py",
+                      "test_portbench_stages.py"}, out.stdout[-4000:]
+    copied = _files(tree)
+    for rel, data in _files(src).items():
+        assert copied[rel] == data, rel
