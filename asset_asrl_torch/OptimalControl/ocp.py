@@ -22,6 +22,7 @@ import torch
 from .. import config
 from ..Solvers.nlp import NonLinearProgram, IndexedFunction
 from ..Solvers.psiopt import PSIOPT
+from ..Utils import span
 from ..VectorFunctions.function import Arguments
 from .phase import Phase, _canon_region, _tracefun
 
@@ -38,6 +39,9 @@ class LinkFlags:
 
 
 _PATH = ("Path", "InnerPath")
+# profiler ranges (`Utils.span`) of a solve's host work outside PSIOPT
+_TRANSCRIBE = "asset.ocp.transcribe"
+_IO = "asset.ocp.io"
 
 
 class OptimalControlProblem:
@@ -57,6 +61,7 @@ class OptimalControlProblem:
         self.AdaptiveMesh = False
         self.Threads = 1
         self.JetJobMode = "optimize"
+        self.LastSolveStats = None
 
     # ----------------------------------------------------------- phase admin
     def addPhase(self, phase, name=None):
@@ -262,7 +267,7 @@ class OptimalControlProblem:
                 node_off += p.numNodes
             from ..Solvers.kkt_block import BlockKKT
             try:
-                kkt = BlockKKT(nlp, nov, x0=self._make_input())
+                kkt = BlockKKT(nlp, nov, x0=self.makeSolverInput())
                 if self.KKTBackend == "sharded":
                     from ..Solvers.kkt_sharded import ShardedBlockKKT
                     kkt = ShardedBlockKKT(kkt, self.KKTMesh, self.KKTAxis)
@@ -503,20 +508,35 @@ class OptimalControlProblem:
                 name="linkparam"))
 
     # --------------------------------------------------------------- solving
-    def _make_input(self):
+    def makeSolverInput(self):
+        """The solver's variable vector: every phase's `makeSolverInput()`
+        in order, then the link parameters."""
         return np.concatenate(
             [p.makeSolverInput() for p in self.Phases] + [self._link_params])
 
-    def _collect(self, V):
+    def collectSolverOutput(self, V):
+        """Set every phase's trajectory and parameters, and the link
+        parameters, from the solver vector V (the layout of
+        `makeSolverInput`; the problem must have been transcribed)."""
+        V = np.asarray(V, np.float64)
         for p, o in zip(self.Phases, self._offsets):
             p.collectSolverOutput(V[o:o + p.numVars])
         if self._link_params.size:
-            self._link_params = np.asarray(V[self._lp_offset:])
+            self._link_params = V[self._lp_offset:].copy()
 
     def _solve_once(self, method):
-        self.transcribe()
-        V = getattr(self.optimizer, method)(self._make_input())
-        self._collect(np.asarray(V))
+        """One solve by the optimizer's `method`.  LastSolveStats holds its
+        host seconds outside the optimizer: `transcribe_s` (the structure
+        check and the consts' refresh, or a new transcription) and `io_s`
+        (the solver vector in and out)."""
+        st = self.LastSolveStats = dict(transcribe_s=0.0, io_s=0.0)
+        with span(_TRANSCRIBE, st, "transcribe_s"):
+            self.transcribe()
+        with span(_IO, st, "io_s"):
+            V0 = self.makeSolverInput()
+        V = getattr(self.optimizer, method)(V0)
+        with span(_IO, st, "io_s"):
+            self.collectSolverOutput(V)
         return self.optimizer.ConvergeFlag
 
     def _call(self, method):

@@ -20,7 +20,11 @@ There is no `lax.while_loop`, so the JAX loops become:
   the climbing lanes take the new factor (`torch.where` over every factor
   tensor), so a lane's result does not depend on its batch mates;
 * the line search: a fixed loop of MaxLSIters masked steps; a lane that
-  accepted keeps its alpha.  It reads nothing on the host.
+  accepted keeps its alpha.  It reads nothing on the host, so on a card
+  it is replayed from a CUDA graph (`kkt_block._Graphed`): its value
+  passes launch a few kernels a family, thousands for a multi-phase
+  problem, whose shapes depend only on the lane count and the consts'
+  shapes.
 
 So the host reads one flag per iteration and one per ladder step, the
 places where a JAX while_loop reads its condition.  The JAX package's
@@ -44,6 +48,7 @@ import torch
 from .. import config
 from ..Utils import span
 from .cuda_kernels import gj_inverse
+from .kkt_block import _Graphed, _regroup
 
 __all__ = ["build_fused_alg", "build_fused_ensemble", "init_multipliers",
            "INFO_FIELDS"]
@@ -65,7 +70,7 @@ _READ = "asset.fused.read"
 # the run's counters (`fn.stats`), reset at each call: counts, and host
 # seconds by stage
 _COUNTS = ("iterations", "syncs", "factorizations", "k1_launches",
-           "ad_replays", "ad_eager")
+           "ad_replays", "ad_eager", "ls_replays", "ls_eager")
 _STAGES = ("ad_s", "kkt_s", "ls_s", "read_s", "loop_s")
 
 
@@ -150,8 +155,14 @@ def build_fused_alg(kkt, opts, mode):
     (B, MaxIters, 9)); one problem is B = 1.  fn.stats holds the last
     call's outer iterations, host reads ("syncs"), factorizations, K1
     launches ("k1_launches"), family-AD passes replayed from a CUDA graph
-    ("ad_replays") and run eagerly ("ad_eager"), and the host seconds of
-    its stages (module docstring)."""
+    ("ad_replays") and run eagerly ("ad_eager"), line searches replayed
+    ("ls_replays") and run eagerly ("ls_eager"), and the host seconds of
+    its stages (module docstring).
+
+    The line searches' graphs live in `kkt._ls_graphs` (None: every line
+    search eager, as on the CPU), keyed by what the search computes with,
+    so the passes of one solve and later solves share them.  A key whose
+    capture fails stays eager."""
     nlp = kkt.nlp
     mE, mI = nlp.numEq, nlp.numIq
     soe = mode in ("SOE", "OPTNO")
@@ -285,6 +296,37 @@ def build_fused_alg(kkt, opts, mode):
             done = done | ok
         return alpha
 
+    ls_graphs = getattr(kkt, "_ls_graphs", None)
+    # what a line search computes with besides its tensors
+    ls_consts = (sigma, lsmode, MaxLSIters, alphaRed, negreset, ECtol,
+                 ICtol)
+
+    def line_search_replayed(args, consts):
+        """`line_search(*args, consts)`, from its CUDA graph where there is
+        one."""
+        sizes = [len(g) for g in consts]
+        flat = list(args) + [c for g in consts for c in g]
+        graph = None
+        if ls_graphs is not None:
+            key = ls_consts + (tuple(sizes),
+                               tuple(tuple(t.shape) for t in flat))
+            if key not in ls_graphs:
+                n = len(args)
+                try:
+                    ls_graphs[key] = _Graphed(
+                        lambda *t: line_search(*t[:n],
+                                               _regroup(t[n:], sizes)),
+                        flat, kkt._ad_pool)
+                except RuntimeError:
+                    # a host read inside a family cannot be captured
+                    ls_graphs[key] = None
+            graph = ls_graphs[key]
+        if graph is None:
+            stats["ls_eager"] += 1
+            return line_search(*args, consts)
+        stats["ls_replays"] += 1
+        return graph(*flat)
+
     def iteration(st, consts):
         it, x, s, lamE, lamI = st["it"], st["x"], st["s"], st["lamE"], \
             st["lamI"]
@@ -407,9 +449,9 @@ def build_fused_alg(kkt, opts, mode):
         # ------------------------------------------------------ line search
         if lsmode in ("AUGLANG", "L1", "LANG"):
             with span(_LINE_SEARCH, stats, "ls_s"):
-                alpha = line_search(x, s, lamE, lamI, dx, ds, obj * sigma,
-                                    BarrObj, Mu, rd, rs, cE, rI, dlamE,
-                                    dlamI, consts)
+                alpha = line_search_replayed(
+                    (x, s, lamE, lamI, dx, ds, obj * sigma, BarrObj, Mu, rd,
+                     rs, cE, rI, dlamE, dlamI), consts)
             alpha = torch.where(good, alpha, 1.0)
         else:
             alpha = x.new_ones((B,))

@@ -654,43 +654,66 @@ def _copy_out(tree):
     return None if tree is None else tree.clone()
 
 
-class _ADGraph:
-    """One family-AD pass (`BlockKKT._eval_eager`) captured as a CUDA graph
-    over static input buffers.  A call copies its inputs into them,
-    replays, and returns copies of the static outputs, so no tensor a
-    caller keeps (the factor's `iq_jx`) is overwritten by the next
-    replay.  The graphs of one BlockKKT share one memory pool: a later
-    capture may place its outputs in an earlier graph's scratch memory,
-    which that graph's replays overwrite, and the copies taken right
-    after each replay make that harmless."""
+def _regroup(flat, sizes):
+    """The flat consts tensors back in their groups of `sizes`."""
+    out, i = [], 0
+    for n in sizes:
+        out.append(tuple(flat[i:i + n]))
+        i += n
+    return tuple(out)
 
-    def __init__(self, kkt, x, lamE, lamI, sigma, consts, want_hess):
-        def static(t):
-            return t.clone(memory_format=torch.contiguous_format)
-        sx, slE, slI = static(x), static(lamE), static(lamI)
-        sconsts = tuple(tuple(static(c) for c in group) for group in consts)
-        self.inputs = _ad_inputs(sx, slE, slI, sconsts)
+
+class _Graphed:
+    """`fn(*inputs)` captured as a CUDA graph over static copies of its
+    tensor inputs.  A call copies its inputs into them, replays, and
+    returns copies of the static outputs, so no tensor a caller keeps (the
+    factor's `iq_jx`) is overwritten by the next replay.  The graphs of
+    one BlockKKT share one memory pool: a later capture may place its
+    outputs in an earlier graph's scratch memory, which that graph's
+    replays overwrite, and the copies taken right after each replay make
+    that harmless."""
+
+    def __init__(self, fn, inputs, pool):
+        self.inputs = [t.clone(memory_format=torch.contiguous_format)
+                       for t in inputs]
 
         def body():
-            return kkt._eval_eager(sx, slE, slI, sigma, sconsts, want_hess)
+            return fn(*self.inputs)
 
         # warm-up on a side stream (lazy caches, library handles), then
         # the capture
-        main = torch.cuda.current_stream(x.device)
-        side = torch.cuda.Stream(x.device)
+        dev = inputs[0].device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             body()
         main.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=kkt._ad_pool):
+        with torch.cuda.graph(self.graph, pool=pool):
             self.outputs = body()
 
-    def __call__(self, x, lamE, lamI, consts):
-        for dst, src in zip(self.inputs, _ad_inputs(x, lamE, lamI, consts)):
+    def __call__(self, *inputs):
+        for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
         self.graph.replay()
         return _copy_out(self.outputs)
+
+
+class _ADGraph(_Graphed):
+    """One family-AD pass (`BlockKKT._eval_eager`) as a `_Graphed`."""
+
+    def __init__(self, kkt, x, lamE, lamI, sigma, consts, want_hess):
+        sizes = [len(g) for g in consts]
+
+        def fn(x, lamE, lamI, *flat):
+            return kkt._eval_eager(x, lamE, lamI, sigma,
+                                   _regroup(flat, sizes), want_hess)
+        super().__init__(fn, _ad_inputs(x, lamE, lamI, consts),
+                         kkt._ad_pool)
+
+    def __call__(self, x, lamE, lamI, consts):
+        return super().__call__(*_ad_inputs(x, lamE, lamI, consts))
 
 
 # ===========================================================================
@@ -727,6 +750,10 @@ class BlockKKT:
         cuda = torch.device(dev).type == "cuda"
         self._ad_capture = _ADGraph if cuda else None
         self._ad_pool = torch.cuda.graph_pool_handle() if cuda else None
+        # the fused loop's line-search graphs (`_Graphed`, by
+        # `fused.build_fused_alg`; None: every line search eager), in the
+        # same pool
+        self._ls_graphs = {} if cuda else None
         self.ad_counts = dict(ad_captures=0, ad_capture_failures=0,
                               ad_replays=0, ad_eager=0)
 

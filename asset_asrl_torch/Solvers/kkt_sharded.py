@@ -330,6 +330,7 @@ class ShardedBlockKKT:
             self.D = mesh.shape[axis]
         self.nlp, self.bs, self.device = base.nlp, base.bs, base.device
         self.ad_counts = base.ad_counts
+        self._ls_graphs, self._ad_pool = base._ls_graphs, base._ad_pool
         self._perm = base._perm
         self._L = max(2, -(-base.bs.K // self.D))
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..Utils import span
 from .fused import INFO_FIELDS, _maxstep, _sigma_diag, _slack_reset, \
     build_fused_alg, init_multipliers
 from .kkt_block import BlockKKT
@@ -40,6 +41,9 @@ __all__ = ["PSIOPT", "ConvergenceFlags"]
 # the backends of the block structure: the fused loop, the least-squares
 # multiplier start, the stage timings and storespmat run on either
 BLOCK_BACKENDS = (BlockKKT, ShardedBlockKKT)
+
+# profiler ranges (`Utils.span`) of a solve's passes, by mode
+_PASS_SPANS = {m: f"asset.psiopt.pass.{m}" for m in ("SOE", "OPTNO", "OPT")}
 
 
 class ConvergenceFlags:
@@ -144,9 +148,13 @@ class PSIOPT:
         # of the last solve; timed inside the loop on either path
         self.LastFuncTime = 0.0
         self.LastKKTTime = 0.0
-        # the last fused pass: outer iterations, host reads,
-        # factorizations, K1 launches, family-AD passes replayed and run
-        # eagerly, and host seconds by stage (`fused.build_fused_alg` stats)
+        # the fused passes of the last solve, summed: outer iterations,
+        # host reads, factorizations, K1 launches, family-AD passes and
+        # line searches replayed and run eagerly, and host seconds by stage
+        # (`fused.build_fused_alg` stats); with `passes`, the SOE-mode
+        # passes' own `soe_iterations` and `soe_s` (their `loop_s`), and
+        # `run_s`, the host seconds of the whole solve.  None after a solve
+        # with no fused pass.
         self.LastFusedStats = None
         self.ConvergeFlag = ConvergenceFlags.NOTCONVERGED
         self.LastEqLmults = None
@@ -320,6 +328,7 @@ class PSIOPT:
         self.LastIterNum = 0
         self.LastFuncTime = 0.0
         self.LastKKTTime = 0.0
+        self.LastFusedStats = None
         x, s, lamE, lamI = self._init_state(np.asarray(x0, np.float64),
                                             self.initMu)
         nlp, dev = self.nlp, self.nlp.device
@@ -343,7 +352,8 @@ class PSIOPT:
         for mode in schedule:
             if mode == "SOE":
                 mode = str(self.SoeMode)
-            x, s, lamE, lamI, flag = alg(mode, x, s, lamE, lamI)
+            with span(_PASS_SPANS[mode]):
+                x, s, lamE, lamI, flag = alg(mode, x, s, lamE, lamI)
             if flag == ConvergenceFlags.DIVERGING:
                 break
         self.ConvergeFlag = flag
@@ -353,6 +363,8 @@ class PSIOPT:
         obj, _, _ = self.nlp.eval_obj_cons(x)
         self.LastObjVal = float(obj)
         self.LastTotalTime = time.perf_counter() - t0
+        if self.LastFusedStats is not None:
+            self.LastFusedStats["run_s"] = self.LastTotalTime
         return _np(x)
 
     # ------------------------------------------------------ fused device loop
@@ -386,7 +398,8 @@ class PSIOPT:
         (x, s, lamE, lamI, Mu, flag, niters, infos,
          bx, bs_, blE, blI) = (o[0] for o in out)
         flag, niters = int(flag), int(niters)
-        st = self.LastFusedStats = dict(fn.stats)
+        st = fn.stats
+        self._add_pass_stats(st, mode in ("SOE", "OPTNO"))
         self.LastFuncTime += st.get("ad_s", 0.0) + st.get("ls_s", 0.0)
         self.LastKKTTime += st.get("kkt_s", 0.0)
         infos = _np(infos[:max(niters, 1)])
@@ -408,6 +421,21 @@ class PSIOPT:
                   f"{len(infos)} iters: obj {r[0]:+.8e} kkt {r[1]:.2e} "
                   f"econ {r[2]:.2e} icon {r[3]:.2e} barr {r[4]:.2e}")
         return x, s, lamE, lamI, flag
+
+    def _add_pass_stats(self, st, soe):
+        """Add one fused pass's counters `st` to LastFusedStats, the sum
+        over the passes of the solve (every counter is a count or host
+        seconds); `soe`: a pass of the SOE mode (sigma 0)."""
+        tot = self.LastFusedStats
+        if tot is None:
+            tot = self.LastFusedStats = dict(passes=0, soe_iterations=0,
+                                             soe_s=0.0)
+        for k, v in st.items():
+            tot[k] = tot.get(k, 0) + v
+        tot["passes"] += 1
+        if soe:
+            tot["soe_iterations"] += st.get("iterations", 0)
+            tot["soe_s"] += st.get("loop_s", 0.0)
 
     def _sig_tilde(self, s, lamI, Mu):
         if self.nlp.numIq == 0:

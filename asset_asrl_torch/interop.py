@@ -41,20 +41,28 @@ def problem_tables_from_numpy(Vidx, consts, device=None):
         _f64(consts, device)
 
 
+def solver_input(problem):
+    """The solver vector of a phase or an OptimalControlProblem of either
+    package: its `makeSolverInput()` (the JAX package's multi-phase
+    problem names it `_make_input()`)."""
+    make = getattr(problem, "makeSolverInput", None) or problem._make_input
+    return np.asarray(make())
+
+
 def iterate_of_problem(problem, device=None):
     """The last iterate of a solved phase or OptimalControlProblem of
     either package, as float64 tensors (x, s, lamE, lamI) on `device`.
 
-    x is the problem's solver input (`makeSolverInput()` of a phase,
-    `_make_input()` of a multi-phase problem: every phase's variables,
-    static parameters included, then the link parameters); s, lamE and
-    lamI are the optimizer's `LastSlacks`, `LastEqLmults` and
-    `LastIqLmults`.  The two packages share the variable layout and the
-    row order, so the result can be factored by the port's KKT backend
-    for a side-by-side comparison of one factor/solve."""
-    make = getattr(problem, "_make_input", None) or problem.makeSolverInput
+    x is the problem's solver input (`solver_input`: every phase's
+    variables, static parameters included, then the link parameters of a
+    multi-phase problem); s, lamE and lamI are the optimizer's
+    `LastSlacks`, `LastEqLmults` and `LastIqLmults`.  The two packages
+    share the variable layout and the row order, so the result can be
+    factored by the port's KKT backend for a side-by-side comparison of
+    one factor/solve."""
     opt = problem.optimizer
-    return state_from_numpy(np.asarray(make()), np.asarray(opt.LastSlacks),
+    return state_from_numpy(solver_input(problem),
+                            np.asarray(opt.LastSlacks),
                             np.asarray(opt.LastEqLmults),
                             np.asarray(opt.LastIqLmults), device)
 

@@ -11,6 +11,7 @@ import torch
 
 import asset_asrl_tpu as jast
 import asset_asrl_torch as tast
+from asset_asrl_torch.interop import solver_input
 from chip_smoke import build_brachistochrone, build_cartpole, build_formation
 from test_torch_parallel import double_integrator
 
@@ -93,7 +94,7 @@ def test_default_ocp_matches_jax_default():
         passes = []
         opt.LateCallBack = passes.append
         out.append((ocp.optimize(), opt.LastIterNum, opt.LastObjVal,
-                    ocp._make_input(), passes, opt.kkt.bs.b))
+                    solver_input(ocp), passes, opt.kkt.bs.b))
     (fj, ij, oj, xj, pj, bj), (ft, it, ot, xt, pt, bt) = out
     assert ft == fj == 0 and it == ij and bt == bj == 85
     assert abs(ot - oj) <= 1e-9 * abs(oj)
@@ -215,8 +216,9 @@ def test_return_best_under_iteration_cap():
 def test_callbacks_timing_and_table(capsys):
     """LateCallBack once per fused pass (solve_optimize: SOE then OPT),
     EarlyCallBack once per host-loop iteration; the fused loop times its
-    stages in the loop and LastFuncTime / LastKKTTime are their totals;
-    PrintLevel 0 prints the iterate table."""
+    stages in the loop, LastFusedStats sums them over the passes so far
+    and LastFuncTime / LastKKTTime are their totals; PrintLevel 0 prints
+    the iterate table."""
     p = build_brachistochrone(tast, "LGL3", 8)
     opt = p.optimizer
     opt.set_PrintLevel(2)
@@ -231,18 +233,25 @@ def test_callbacks_timing_and_table(capsys):
     assert sum(d["iters"] for d in late) == opt.LastIterNum
     assert all(d["infos"].shape == (d["iters"], 9) for d in late)
     assert early == []
-    for st in passes:
+    # each pass's own counters: what it added to the sum
+    own = [passes[0]] + [{k: b[k] - a[k] for k in a}
+                         for a, b in zip(passes, passes[1:])]
+    assert [st["passes"] for st in own] == [1, 1]
+    for st in own:
         assert {"ad_s", "kkt_s", "ls_s", "read_s", "loop_s",
                 "k1_launches"} <= set(st)
         assert all(st[k] > 0 for k in ("ad_s", "kkt_s", "loop_s"))
-    assert passes[-1]["ls_s"] > 0        # OPT's line search (SOE has none)
-    assert opt.LastFuncTime == pytest.approx(
-        sum(st["ad_s"] + st["ls_s"] for st in passes), rel=1e-12)
-    assert opt.LastKKTTime == pytest.approx(
-        sum(st["kkt_s"] for st in passes), rel=1e-12)
-    assert opt.LastFuncTime + opt.LastKKTTime <= opt.LastTotalTime
+    assert own[-1]["ls_s"] > 0           # OPT's line search (SOE has none)
     stats = opt.LastFusedStats
-    assert stats["iterations"] == late[-1]["iters"]
+    assert opt.LastFuncTime == pytest.approx(
+        stats["ad_s"] + stats["ls_s"], rel=1e-12)
+    assert opt.LastKKTTime == pytest.approx(stats["kkt_s"], rel=1e-12)
+    assert opt.LastFuncTime + opt.LastKKTTime <= opt.LastTotalTime
+    assert stats["iterations"] == opt.LastIterNum \
+        == late[0]["iters"] + late[1]["iters"]
+    assert (stats["passes"], stats["soe_iterations"]) == (2, late[0]["iters"])
+    assert stats["soe_s"] == passes[0]["loop_s"]
+    assert stats["loop_s"] <= stats["run_s"] == opt.LastTotalTime
     assert stats["syncs"] >= 2 * stats["iterations"]
 
     opt.UseFused = False

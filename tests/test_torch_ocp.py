@@ -28,10 +28,10 @@ import torch
 import asset_asrl_tpu as jast
 import asset_asrl_torch as tast
 from asset_asrl_tpu.Solvers import nlp as jnlp
-from asset_asrl_torch.interop import iterate_of_problem
+from asset_asrl_torch.interop import iterate_of_problem, solver_input
 from asset_asrl_torch.Solvers import nlp as tnlp
-from chip_smoke import (D3, DELTA3, DELTA3_ADAPTIVE, FORMATION, build_delta3,
-                        build_formation)
+from chip_smoke import (D3, DELTA3_ADAPTIVE, DELTA3_FUSED, FORMATION,
+                        build_delta3, build_formation)
 
 torch.set_num_threads(2)
 # the port's tests run on the CPU, also on a machine with a card (the
@@ -76,7 +76,7 @@ def test_formation_8_matches_jax(formation8):
     assert (bj.K, bj.W, bj.b) == (bt.K, bt.W, bt.b) == (18, 8, b0)
     gap = np.asarray(pb.returnTraj())[:, 0] - np.asarray(pa.returnTraj())[:, 0]
     assert np.allclose(gap, 0.2, atol=1e-6)
-    assert np.abs(ot._make_input() - oj._make_input()).max() < 1e-8
+    assert np.abs(ot.makeSolverInput() - oj._make_input()).max() < 1e-8
 
 
 def test_formation_8_factor_solve_side_by_side(formation8):
@@ -203,7 +203,7 @@ def test_path_link_with_staticparam_region():
                             [(pb, "StaticParams", [], [], [0]),
                              (pa, "Path", [0], [], [])])
         ocp.transcribe()
-        x0 = ocp._make_input()
+        x0 = solver_input(ocp)
         _, cE, _ = ocp._nlp.eval_obj_cons(
             jnp.asarray(x0) if ast is jast else torch.tensor(x0))
         n = pa.numNodes
@@ -234,12 +234,31 @@ def _link_forms(ast):
     return ocp
 
 
+def test_solver_vector_round_trip():
+    """`collectSolverOutput(V)` then `makeSolverInput()` gives V back
+    bitwise: both phases' nodes and times, the static parameters and the
+    link parameters; and the solve's host seconds outside PSIOPT are in
+    `LastSolveStats`."""
+    ocp = _link_forms(tast)
+    ocp.transcribe()
+    V0 = ocp.makeSolverInput()
+    V = V0 * (1.0 + 1e-3 * np.random.default_rng(7).normal(size=V0.size))
+    ocp.collectSolverOutput(V)
+    assert np.array_equal(ocp.makeSolverInput(), V)
+    assert np.array_equal(ocp.returnLinkParams(), V[-2:])
+    assert ocp.Phases[1].returnStaticParams()[1] == V[ocp._lp_offset - 1]
+    ocp.optimizer.MaxIters = 2
+    ocp.optimize()
+    assert set(ocp.LastSolveStats) == {"transcribe_s", "io_s"}
+    assert all(v > 0 for v in ocp.LastSolveStats.values())
+
+
 def test_link_forms_match_jax():
     oj, ot = _link_forms(jast), _link_forms(tast)
     oj.transcribe()
     ot.transcribe()
     x = oj._make_input()
-    assert np.array_equal(x, ot._make_input())
+    assert np.array_equal(x, ot.makeSolverInput())
     nj, nt = oj._nlp, ot._nlp
     assert (nj.numPrimal, nj.numEq, nj.numIq) == \
         (nt.numPrimal, nt.numEq, nt.numIq)
@@ -315,13 +334,18 @@ def test_delta3_nlp_at_initial_guess(delta3_40):
 
 @pytest.mark.slow
 def test_delta3_solve_40():
-    flag0, it0, mass0 = DELTA3[40]
+    """The default path (the fused loop) of `solve_optimize()` at 40
+    segments a phase: the JAX package's flag, and its final mass to 1e-6
+    relative, above the 8.5e-7 that either package's mass spreads under
+    1e-10 perturbations of x0; the iterations are not held (33-55 there,
+    `chip_smoke.DELTA3_FUSED`)."""
+    flag0, mass0 = DELTA3_FUSED
     ocp, phases = build_delta3(tast, 40)
-    quiet(ocp)
+    ocp.optimizer.set_PrintLevel(2)
+    assert ocp.optimizer.UseFused
     assert ocp.solve_optimize() == flag0 == CONVERGED
-    assert ocp.optimizer.LastIterNum == it0
     mass = phases[3].returnTraj()[-1][6] * D3["Mstar"]
-    assert abs(mass - mass0) <= 1e-7 * mass0
+    assert abs(mass - mass0) <= 1e-6 * mass0
 
 
 @pytest.mark.slow

@@ -13,6 +13,7 @@ import asset_asrl_tpu as jast
 import asset_asrl_torch as tast
 from asset_asrl_tpu import parallel as jpar
 from asset_asrl_torch import parallel as tpar
+from asset_asrl_torch.interop import solver_input
 
 torch.set_num_threads(2)
 # the port's tests run on the CPU, also on a machine with a card (the
@@ -281,7 +282,7 @@ def test_goddard_diverging_rate_matches_jax():
         ocp = goddard_three_phase(ast)
         ocp.transcribe()
         ocp._need_transcribe = False        # the JAX solve_ensemble asks
-        base = np.asarray(ocp._make_input())
+        base = solver_input(ocp)
         rng = np.random.default_rng(2026)
         x0s = [base + base * 1e-10 * rng.normal(size=base.shape)
                for _ in range(128)]
