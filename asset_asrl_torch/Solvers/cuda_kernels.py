@@ -25,11 +25,16 @@ a CPU tensor takes the plain PyTorch version (the tests run on the CPU):
 for step, so that its arithmetic can be tested without a card.
 `gj_inverse.launches` counts calls that launched a narrow kernel,
 `gj_inverse.wide_launches` those that launched the wide one, and
-`gj_inverse.shapes` every launch by its (K, W).
+`gj_inverse.shapes` every launch by its (K, W).  Launches made while a
+CUDA graph is warmed up and captured are left out (`uncounted`), and each
+replay of the graph counts the launches it replays (`count_replayed`),
+also in `gj_inverse.replayed` by (K, W): the launches that no host call
+shows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -207,12 +212,44 @@ def _launch(D, sanitize, who):
                 nbad.data_ptr(), K, W, int(sanitize), stream)
     if err != 0:
         raise RuntimeError(f"{who}: CUDA launch failed with error {err}")
-    if wide:
-        gj_inverse.wide_launches += 1
-    else:
-        gj_inverse.launches += 1
-    gj_inverse.shapes[K, W] = gj_inverse.shapes.get((K, W), 0) + 1
+    _count(K, W, 1)
     return Dinv, pivs, nbad
+
+
+def _count(K, W, n):
+    """Count `n` launches of K1 at (K, W)."""
+    if W > MAX_W:
+        gj_inverse.wide_launches += n
+    else:
+        gj_inverse.launches += n
+    gj_inverse.shapes[K, W] = gj_inverse.shapes.get((K, W), 0) + n
+
+
+@contextlib.contextmanager
+def uncounted():
+    """K1's launches inside the block are not counted (a CUDA graph's
+    warm-up and capture).  Yields a dict that receives them, (K, W) ->
+    launches, when the block ends."""
+    saved = (gj_inverse.launches, gj_inverse.wide_launches,
+             dict(gj_inverse.shapes))
+    made = {}
+    try:
+        yield made
+    finally:
+        for key, n in gj_inverse.shapes.items():
+            if n != saved[2].get(key, 0):
+                made[key] = n - saved[2].get(key, 0)
+        gj_inverse.launches, gj_inverse.wide_launches = saved[:2]
+        gj_inverse.shapes.clear()
+        gj_inverse.shapes.update(saved[2])
+
+
+def count_replayed(made):
+    """Count the K1 launches `made` ((K, W) -> launches, from `uncounted`)
+    that one replay of a CUDA graph makes."""
+    for (K, W), n in made.items():
+        _count(K, W, n)
+        gj_inverse.replayed[K, W] = gj_inverse.replayed.get((K, W), 0) + n
 
 
 def gj_inverse(D):
@@ -252,3 +289,5 @@ gj_inverse.launches = 0
 gj_inverse.wide_launches = 0
 # (K, W) -> launches of K1 at that shape, narrow and wide
 gj_inverse.shapes = {}
+# (K, W) -> launches of K1 at that shape replayed from CUDA graphs
+gj_inverse.replayed = {}

@@ -26,6 +26,12 @@ There is no `lax.while_loop`, so the JAX loops become:
   problem, whose shapes depend only on the lane count and the consts'
   shapes.
 
+The block KKT's work (assembly, BCR factorizations and solves: hundreds
+of small kernels a factorization) is replayed on a card too, from CUDA
+graphs cut at the ladder's host reads (`_KKTGraphs`): the assembly with
+the first factorization, one rung of the ladder (every rung replays it),
+and the barrier update with the probe and Newton solves.
+
 So the host reads one flag per iteration and one per ladder step, the
 places where a JAX while_loop reads its condition.  The JAX package's
 non-TPU branches are the ones ported: the inertia probe at delta 0, no
@@ -48,7 +54,7 @@ import torch
 from .. import config
 from ..Utils import span
 from .cuda_kernels import gj_inverse
-from .kkt_block import _Graphed, _regroup
+from .kkt_block import _Graphed, _layouts, _leaves, _refill, _regroup
 
 __all__ = ["build_fused_alg", "build_fused_ensemble", "init_multipliers",
            "INFO_FIELDS"]
@@ -70,7 +76,8 @@ _READ = "asset.fused.read"
 # the run's counters (`fn.stats`), reset at each call: counts, and host
 # seconds by stage
 _COUNTS = ("iterations", "syncs", "factorizations", "k1_launches",
-           "ad_replays", "ad_eager", "ls_replays", "ls_eager")
+           "k1_replayed", "ad_replays", "ad_eager", "ls_replays", "ls_eager",
+           "kkt_replays", "kkt_eager")
 _STAGES = ("ad_s", "kkt_s", "ls_s", "read_s", "loop_s")
 
 
@@ -111,15 +118,69 @@ def _bcast(c, a):
     return c.view((-1,) + (1,) * (a.dim() - 1))
 
 
-def _select(c, new, old):
-    """Per lane: new where c, else old, over nested dicts / lists."""
+def _select(c, new, old, out=None):
+    """Per lane: new where c, else old, over nested dicts / lists; with
+    `out` (of their structure), written into its tensors."""
     if isinstance(new, dict):
-        return {k: _select(c, new[k], old[k]) for k in new}
+        return {k: _select(c, new[k], old[k], out and out[k]) for k in new}
     if isinstance(new, (list, tuple)):
-        return type(new)(_select(c, a, b) for a, b in zip(new, old))
+        outs = [None] * len(new) if out is None else out
+        return type(new)(_select(c, a, b, o)
+                         for a, b, o in zip(new, old, outs))
     if new is None:
         return None
-    return torch.where(_bcast(c, new), new, old)
+    return torch.where(_bcast(c, new), new, old, out=out)
+
+
+class _EagerKKT:
+    """One iteration's block-KKT work run as it is (the CPU,
+    `ShardedBlockKKT`, a key whose capture failed), in the stretches
+    between the ladder's host reads: `factor` assembles and makes the first
+    factorization, `climb` one rung of the ladder, written into the first
+    factorization's tensors, `solve` the Newton direction from the kept
+    factor.  `state` holds the blocks, the kept factor and the ladder's
+    state."""
+
+    def __init__(self, first, rung, direction):
+        self._first, self._rung, self._direction = first, rung, direction
+
+    def factor(self, *inputs):
+        self.state = self._first(*inputs)
+
+    def climb(self):
+        self._rung(self.state)
+
+    def solve(self, *inputs):
+        return self._direction(self.state, *inputs)
+
+
+class _KKTGraphs:
+    """The same stretches as CUDA graphs (`_Graphed`) of one key: the
+    first factorization, a rung, the direction.  The first factorization's
+    outputs stay in its static buffers (`state`), which the rungs update in
+    place, as the eager ladder does, and the directions read, so nothing is
+    copied out of them.  They are read only from a `factor` to the `solve`
+    after it, while no other graph replays (graphs captured earlier into
+    the same pool may use that memory as scratch).  All three are captured
+    here, before the first replay, so the warm-ups of the rung and the
+    direction, on buffers not yet filled, change nothing that is read."""
+
+    def __init__(self, first, rung, direction, first_in, dir_in, pool):
+        self.first = _Graphed(first, first_in, pool)
+        self.state = state = self.first.outputs
+        self.rung = _Graphed(lambda: rung(state), [], pool,
+                             first_in[0].device)
+        self.direction = _Graphed(lambda *t: direction(state, *t), dir_in,
+                                  pool)
+
+    def factor(self, *inputs):
+        self.first.run(*inputs)
+
+    def climb(self):
+        self.rung.run()
+
+    def solve(self, *inputs):
+        return self.direction(*inputs)
 
 
 def init_multipliers(kkt, x, sigma, gammaE, consts, stats=None):
@@ -154,14 +215,17 @@ def build_fused_alg(kkt, opts, mode):
     has a leading lane axis (x (B, n), ...; flag, niters, Mu (B,); infos
     (B, MaxIters, 9)); one problem is B = 1.  fn.stats holds the last
     call's outer iterations, host reads ("syncs"), factorizations, K1
-    launches ("k1_launches"), family-AD passes replayed from a CUDA graph
+    launches ("k1_launches"; those replayed from a CUDA graph:
+    "k1_replayed", and "k1_replayed.<K>x<W>" at each shape), family-AD passes replayed from a CUDA graph
     ("ad_replays") and run eagerly ("ad_eager"), line searches replayed
-    ("ls_replays") and run eagerly ("ls_eager"), and the host seconds of
-    its stages (module docstring).
+    ("ls_replays") and run eagerly ("ls_eager"), iterations whose block
+    KKT was replayed ("kkt_replays") and run eagerly ("kkt_eager"), and the
+    host seconds of its stages (module docstring).
 
-    The line searches' graphs live in `kkt._ls_graphs` (None: every line
-    search eager, as on the CPU), keyed by what the search computes with,
-    so the passes of one solve and later solves share them.  A key whose
+    The line searches' graphs live in `kkt._ls_graphs` and the block KKT's
+    in `kkt._kkt_graphs` (None: eager, as on the CPU), keyed by what they
+    compute with and their inputs' shapes (the KKT's also by strides), so
+    the passes of one solve and later solves share them.  A key whose
     capture fails stays eager."""
     nlp = kkt.nlp
     mE, mI = nlp.numEq, nlp.numIq
@@ -208,13 +272,9 @@ def build_fused_alg(kkt, opts, mode):
     def reset_stats():
         stats.update(dict.fromkeys(_COUNTS, 0))
         stats.update(dict.fromkeys(_STAGES, 0.0))
+        for k in [k for k in stats if k.startswith("k1_replayed.")]:
+            del stats[k]
     reset_stats()
-
-    def factor_blocks(blocks, d):
-        # unit_diag: SOE mode's unit primal diagonal
-        stats["factorizations"] += 1
-        with span(_FACTOR, stats, "kkt_s"):
-            return kkt._factor_blocks_impl(blocks, d + unit_diag, gammaE)
 
     def read(flags):
         """Whether any entry of the device tensor `flags` is set: one host
@@ -223,25 +283,150 @@ def build_fused_alg(kkt, opts, mode):
         with span(_READ, stats, "read_s"):
             return bool(flags.any())
 
-    def factor_ladder(blocks, Hpert0, first_pert, zfac, active):
-        """Inertia-correction ladder: probe at delta = 0 when allowed,
-        then climb the deltas until the inertia is right, lane by lane."""
+    def climbing(neigs, k, active):
+        """The lanes whose inertia is wrong, with refactors left."""
+        return (neigs > mE) & (k < MaxRefac) & active
+
+    def first_factor(famvals, sig_tilde, Hpert0, first_pert, zfac, active):
+        """Assembly and the inertia-correction ladder's first
+        factorization: the probe at delta = 0 when allowed.  Returns the
+        ladder's state."""
+        with span(_ASSEMBLY):
+            blocks = kkt._blocks_impl(famvals, sig_tilde)
         d0 = torch.where(zfac, 0.0, Hpert0)
         incr0 = incrH * torch.where(first_pert, incrH, 1.0)
         dnext = torch.where(zfac, Hpert0, Hpert0 * incr0)
-        fac, neigs = factor_blocks(blocks, d0)
-        dused = d0
+        # unit_diag: SOE mode's unit primal diagonal
+        fac, neigs = kkt._factor_blocks_impl(blocks, d0 + unit_diag, gammaE)
         k = torch.zeros_like(neigs)
-        while True:
-            climbing = (neigs > mE) & (k < MaxRefac) & active
-            if not read(climbing):
-                return fac, neigs, dused, k
-            fac2, neigs2 = factor_blocks(blocks, dnext)
-            fac = _select(climbing, fac2, fac)
-            neigs = torch.where(climbing, neigs2, neigs)
-            dused = torch.where(climbing, dnext, dused)
-            dnext = torch.where(climbing, dnext * incrH, dnext)
-            k = torch.where(climbing, k + 1, k)
+        return dict(blocks=blocks, fac=fac, neigs=neigs, dused=d0,
+                    dnext=dnext, k=k, climbing=climbing(neigs, k, active),
+                    active=active, iq_jx=famvals["jx_iq"])
+
+    def rung(st):
+        """One rung of the ladder, written into the ladder's state `st`:
+        the blocks refactored at the next delta, which only the climbing
+        lanes take, and the next climbing mask."""
+        c = st["climbing"]
+        fac, neigs = kkt._factor_blocks_impl(st["blocks"],
+                                             st["dnext"] + unit_diag, gammaE)
+        # every value is taken before the first write (dused <- dnext)
+        for name, value in (("fac", fac), ("neigs", neigs),
+                            ("dused", st["dnext"]),
+                            ("dnext", st["dnext"] * incrH),
+                            ("k", st["k"] + 1)):
+            _select(c, value, st[name], st[name])
+        c.copy_(climbing(st["neigs"], st["k"], st["active"]))
+
+    def direction(st, rd, cE, rI, SigInv, sig_tilde, lamI, s, Mu, avgcomp,
+                  mincomp):
+        """From the kept factor to the step: the barrier update (with the
+        Mehrotra probe's solve), the Newton solve and its fraction-to-
+        boundary scaling.  Returns (Mu, BarrObj, rs, dx, ds, dlamE, dlamI,
+        good, dused, nfacs)."""
+        fac = dict(st["fac"], iq_jx=st["iq_jx"])
+        B = rd.shape[0]
+        corr = 0.0
+        if mI > 0:
+            if barmode == "PROBE":
+                w_aff = rI - SigInv * lamI
+                rx_aff = rd + kkt._iq_rmatvec_impl(fac, sig_tilde * w_aff)
+                dxa, _ = kkt._solve_impl(fac, -rx_aff, -cE)
+                dlamI_aff = sig_tilde * (kkt._iq_matvec_impl(fac, dxa)
+                                         + w_aff)
+                ds_aff = -SigInv * (lamI + dlamI_aff)
+                # fraction-to-boundary damping of the affine probe
+                apa = _maxstep(s, ds_aff, bfrac)
+                ada = _maxstep(lamI, dlamI_aff, bfrac)
+                navg = ((s + apa[:, None] * ds_aff)
+                        * (lamI + ada[:, None] * dlamI_aff)).mean(-1)
+                Mu = torch.where(avgcomp != 0,
+                                 (navg / avgcomp) ** 3 * avgcomp, Mu)
+                if probe_corr:
+                    # Mehrotra second-order correction
+                    corr = ds_aff * dlamI_aff / s
+            else:  # LOQO
+                eta = torch.where(avgcomp != 0, mincomp / avgcomp, 0.0)
+                sigmat = 0.1 * (0.05 * (1.0 - eta)
+                                / torch.clamp(eta, min=1e-300)) ** 3
+                sig_mu = torch.where(eta > 0,
+                                     torch.clamp(sigmat.abs(), max=0.8), 0.8)
+                Mu = sig_mu * avgcomp
+            Mu = torch.clamp(Mu, MinMu, MaxMu)
+            BarrObj = -Mu * torch.log(torch.clamp(s, min=1e-300)).sum(-1)
+            rs = lamI - Mu[:, None] / s + corr
+        else:
+            BarrObj = rd.new_zeros((B,))
+            rs = rd.new_zeros((B, 0))
+
+        # ------------------------------------------------ newton solve
+        if mI > 0:
+            w = rI - SigInv * rs
+            rhs_x = rd + kkt._iq_rmatvec_impl(fac, sig_tilde * w)
+        else:
+            rhs_x = rd
+        dx, dlamE = kkt._solve_impl(fac, -rhs_x, -cE)
+        if mI > 0:
+            dlamI = sig_tilde * (kkt._iq_matvec_impl(fac, dx) + w)
+            ds = -SigInv * (rs + dlamI)
+        else:
+            dlamI, ds = lamI, s
+        good = torch.isfinite((dx ** 2).sum(-1)) \
+            & torch.isfinite((dlamE ** 2).sum(-1))
+
+        if mI > 0:
+            alphap = _maxstep(s, ds, bfrac)
+            alphad = _maxstep(lamI, dlamI, bfrac)
+            if pdstrat == "AllMinimum":
+                am = torch.minimum(alphap, alphad)
+                steps = (am, am, am, am)
+            elif pdstrat == "PrimSlack_EqIq":
+                steps = (alphap, alphap, alphad, alphad)
+            elif pdstrat == "MaxEq":
+                steps = (alphap, alphap, torch.maximum(alphap, alphad),
+                         alphad)
+            else:  # PrimSlackEq_Iq (reference default)
+                steps = (alphap, alphap, alphap, alphad)
+            dx = dx * steps[0][:, None]
+            ds = ds * steps[1][:, None]
+            dlamE = dlamE * steps[2][:, None]
+            dlamI = dlamI * steps[3][:, None]
+        return (Mu, BarrObj, rs, dx, ds, dlamE, dlamI, good, st["dused"],
+                st["k"])
+
+    kkt_graphs = getattr(kkt, "_kkt_graphs", None)
+    # what the KKT stretches compute with besides their tensors
+    kkt_consts = (unit_diag, gammaE, incrH, MaxRefac, barmode, probe_corr,
+                  bfrac, MinMu, MaxMu, pdstrat)
+
+    def kkt_work(famvals, first_in, dir_in):
+        """The iteration's block-KKT work: its key's graphs where there
+        are, else eager.  first_in: the first factorization's inputs,
+        `famvals`' tensors last; dir_in: the direction's."""
+        def first(*t):
+            return first_factor(_refill(famvals, t[5:]), *t[:5])
+        work = None
+        if kkt_graphs is not None:
+            key = kkt_consts + (_layouts(famvals), _layouts(first_in[:5]),
+                                _layouts(dir_in))
+            if key not in kkt_graphs:
+                try:
+                    kkt_graphs[key] = _KKTGraphs(first, rung, direction,
+                                                 first_in, dir_in,
+                                                 kkt._ad_pool)
+                    # a first factorization, a rung, a direction
+                    kkt.kkt_counts["kkt_captures"] += 3
+                except RuntimeError:
+                    # a host read in the assembly or the BCR cannot be
+                    # captured
+                    kkt_graphs[key] = None
+                    kkt.kkt_counts["kkt_capture_failures"] += 1
+            work = kkt_graphs[key]
+        if work is None:
+            kkt.kkt_counts["kkt_eager"] += 1
+            return _EagerKKT(first, rung, direction)
+        kkt.kkt_counts["kkt_replays"] += 1
+        return work
 
     def line_search(x, s, lamE, lamI, dx, ds, PrimObj, BarrObj, Mu,
                     rd, rs, cE, rI, lamE_d, lamI_d, consts):
@@ -360,91 +545,34 @@ def build_fused_alg(kkt, opts, mode):
             sig_tilde = SigInv = x.new_zeros((B, 0))
             avgcomp = mincomp = maxcomp = zB
 
-        with span(_ASSEMBLY, stats, "kkt_s"):
-            blocks = kkt._blocks_impl(famvals, sig_tilde)
-
         # FastFactorAlg probe heuristic: skip the delta=0 probe when the
         # last 4 iterations all needed perturbation.
         cycling = st["nonzero4"].all(-1)
         zfac = ~(FastFactor & (it > 6) & (((it * 3) % 4) != 0) & cycling)
-        fac, neigs, dused, nfacs = factor_ladder(
-            blocks, Hpert0, st["first_pert"], zfac, active)
-        fac["iq_jx"] = famvals["jx_iq"]
+
+        # ------------------------------------------------- the block KKT
+        # assembly and the first factorization, the ladder's rungs while
+        # a lane climbs (one host read each), the step
+        first_in = [sig_tilde, Hpert0, st["first_pert"], zfac, active] \
+            + _leaves(famvals)
+        dir_in = [rd, cE, rI, SigInv, sig_tilde, lamI, s, Mu, avgcomp,
+                  mincomp]
+        work = kkt_work(famvals, first_in, dir_in)
+        stats["factorizations"] += 1
+        with span(_FACTOR, stats, "kkt_s"):
+            work.factor(*first_in)
+        while read(work.state["climbing"]):
+            stats["factorizations"] += 1
+            with span(_FACTOR, stats, "kkt_s"):
+                work.climb()
+        with span(_SOLVE, stats, "kkt_s"):
+            (Mu, BarrObj, rs, dx, ds, dlamE, dlamI, good, dused,
+             nfacs) = work.solve(*dir_in)
         pert_used = dused > 0
         Hpert0 = torch.where(pert_used,
                              torch.clamp(dused * decrH, min=deltaH), Hpert0)
         first_pert = st["first_pert"] & ~pert_used
         nonzero4 = torch.cat([st["nonzero4"][:, 1:], pert_used[:, None]], 1)
-
-        # ------------------------------------------- barrier mu update
-        corr = 0.0
-        if mI > 0:
-            if barmode == "PROBE":
-                w_aff = rI - SigInv * lamI
-                with span(_SOLVE, stats, "kkt_s"):
-                    rx_aff = rd + kkt._iq_rmatvec_impl(fac,
-                                                       sig_tilde * w_aff)
-                    dxa, _ = kkt._solve_impl(fac, -rx_aff, -cE)
-                    dlamI_aff = sig_tilde * (kkt._iq_matvec_impl(fac, dxa)
-                                             + w_aff)
-                ds_aff = -SigInv * (lamI + dlamI_aff)
-                # fraction-to-boundary damping of the affine probe
-                apa = _maxstep(s, ds_aff, bfrac)
-                ada = _maxstep(lamI, dlamI_aff, bfrac)
-                navg = ((s + apa[:, None] * ds_aff)
-                        * (lamI + ada[:, None] * dlamI_aff)).mean(-1)
-                Mu = torch.where(avgcomp != 0,
-                                 (navg / avgcomp) ** 3 * avgcomp, Mu)
-                if probe_corr:
-                    # Mehrotra second-order correction
-                    corr = ds_aff * dlamI_aff / s
-            else:  # LOQO
-                eta = torch.where(avgcomp != 0, mincomp / avgcomp, 0.0)
-                sigmat = 0.1 * (0.05 * (1.0 - eta)
-                                / torch.clamp(eta, min=1e-300)) ** 3
-                sig_mu = torch.where(eta > 0,
-                                     torch.clamp(sigmat.abs(), max=0.8), 0.8)
-                Mu = sig_mu * avgcomp
-            Mu = torch.clamp(Mu, MinMu, MaxMu)
-            BarrObj = -Mu * torch.log(torch.clamp(s, min=1e-300)).sum(-1)
-            rs = lamI - Mu[:, None] / s + corr
-        else:
-            BarrObj = zB
-            rs = x.new_zeros((B, 0))
-
-        # ---------------------------------------------------- newton solve
-        with span(_SOLVE, stats, "kkt_s"):
-            if mI > 0:
-                w = rI - SigInv * rs
-                rhs_x = rd + kkt._iq_rmatvec_impl(fac, sig_tilde * w)
-            else:
-                rhs_x = rd
-            dx, dlamE = kkt._solve_impl(fac, -rhs_x, -cE)
-            if mI > 0:
-                dlamI = sig_tilde * (kkt._iq_matvec_impl(fac, dx) + w)
-                ds = -SigInv * (rs + dlamI)
-            else:
-                dlamI, ds = lamI, s
-        good = torch.isfinite((dx ** 2).sum(-1)) \
-            & torch.isfinite((dlamE ** 2).sum(-1))
-
-        if mI > 0:
-            alphap = _maxstep(s, ds, bfrac)
-            alphad = _maxstep(lamI, dlamI, bfrac)
-            if pdstrat == "AllMinimum":
-                am = torch.minimum(alphap, alphad)
-                steps = (am, am, am, am)
-            elif pdstrat == "PrimSlack_EqIq":
-                steps = (alphap, alphap, alphad, alphad)
-            elif pdstrat == "MaxEq":
-                steps = (alphap, alphap, torch.maximum(alphap, alphad),
-                         alphad)
-            else:  # PrimSlackEq_Iq (reference default)
-                steps = (alphap, alphap, alphap, alphad)
-            dx = dx * steps[0][:, None]
-            ds = ds * steps[1][:, None]
-            dlamE = dlamE * steps[2][:, None]
-            dlamI = dlamI * steps[3][:, None]
 
         # ------------------------------------------------------ line search
         if lsmode in ("AUGLANG", "L1", "LANG"):
@@ -536,7 +664,8 @@ def build_fused_alg(kkt, opts, mode):
     def run(x, s, lamE, lamI, Mu0, consts):
         t0 = time.perf_counter()
         k1_0 = sum(gj_inverse.shapes.values())
-        ad0 = dict(kkt.ad_counts)
+        rp0 = dict(gj_inverse.replayed)
+        ad0, kkt0 = dict(kkt.ad_counts), dict(kkt.kkt_counts)
         reset_stats()
         st = make_init(x, s, lamE, lamI, Mu0, consts)
         while read((st["flag"] == _NOTCONV) & (st["it"] < MaxIters)):
@@ -544,8 +673,14 @@ def build_fused_alg(kkt, opts, mode):
                 st = iteration(st, consts)
             stats["iterations"] += 1
         stats["k1_launches"] = sum(gj_inverse.shapes.values()) - k1_0
+        for (K, W), n in gj_inverse.replayed.items():
+            if n != rp0.get((K, W), 0):
+                stats[f"k1_replayed.{K}x{W}"] = n - rp0.get((K, W), 0)
+                stats["k1_replayed"] += n - rp0.get((K, W), 0)
         for k in ("ad_replays", "ad_eager"):
             stats[k] = kkt.ad_counts[k] - ad0[k]
+        for k in ("kkt_replays", "kkt_eager"):
+            stats[k] = kkt.kkt_counts[k] - kkt0[k]
         stats["loop_s"] = time.perf_counter() - t0
         return (st["x"], st["s"], st["lamE"], st["lamI"], st["Mu"],
                 st["flag"], st["it"], st["infos"], st["best_x"],

@@ -35,6 +35,8 @@ only on the lane count, the Hessian mode, `sigma` and the consts' shapes,
 so `BlockKKT._eval_core` captures it once per such key and replays it
 (`_ADGraph`).  A key whose capture fails (a host read inside a family)
 stays eager for the life of the object; on the CPU every pass is eager.
+The fused loop replays its line search and its block-KKT work the same
+way (`_Graphed`, `fused.py`), in the same memory pool.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import torch
 
 from .. import config
 from ..Utils import span
-from .cuda_kernels import gj_inverse_inertia
+from .cuda_kernels import count_replayed, gj_inverse_inertia, uncounted
 from .nlp import _family_hess, _family_valjac
 
 # profiler ranges (`Utils.span`); a family's are built in BlockKKT.__init__
@@ -654,6 +656,39 @@ def _copy_out(tree):
     return None if tree is None else tree.clone()
 
 
+def _leaves(tree):
+    """The tensors of `tree` (dicts, lists, tuples, None), in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _refill(tree, leaves):
+    """`tree` with its tensors replaced, in `_leaves` order, by
+    `leaves`."""
+    it = iter(leaves)
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {k: fill(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(fill(v) for v in t)
+        return None if t is None else next(it)
+    return fill(tree)
+
+
+def _layouts(tree):
+    """`tree`'s structure with each tensor replaced by its shape and
+    strides: what a graph's key holds of its inputs."""
+    if isinstance(tree, dict):
+        return tuple((k, _layouts(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_layouts(v) for v in tree)
+    return None if tree is None else (tuple(tree.shape), tree.stride())
+
+
 def _regroup(flat, sizes):
     """The flat consts tensors back in their groups of `sizes`."""
     out, i = [], 0
@@ -665,39 +700,48 @@ def _regroup(flat, sizes):
 
 class _Graphed:
     """`fn(*inputs)` captured as a CUDA graph over static copies of its
-    tensor inputs.  A call copies its inputs into them, replays, and
-    returns copies of the static outputs, so no tensor a caller keeps (the
-    factor's `iq_jx`) is overwritten by the next replay.  The graphs of
-    one BlockKKT share one memory pool: a later capture may place its
+    tensor inputs, in their layouts (a product rounds by its operands'
+    layout; `device`: where a graph of no inputs runs).  `run`
+    copies its inputs into them and replays; the static outputs
+    (`outputs`) hold until the graph's next replay.  A call is a `run`
+    that returns copies of the static outputs, so no tensor a caller keeps
+    (the factor's `iq_jx`) is overwritten by the next replay.  The graphs
+    of one BlockKKT share one memory pool: a later capture may place its
     outputs in an earlier graph's scratch memory, which that graph's
     replays overwrite, and the copies taken right after each replay make
-    that harmless."""
+    that harmless.  K1's launches during the warm-up and the capture are
+    not counted; each replay counts the launches it replays (`k1`)."""
 
-    def __init__(self, fn, inputs, pool):
-        self.inputs = [t.clone(memory_format=torch.contiguous_format)
-                       for t in inputs]
+    def __init__(self, fn, inputs, pool, device=None):
+        self.inputs = [t.clone() for t in inputs]
 
         def body():
             return fn(*self.inputs)
 
         # warm-up on a side stream (lazy caches, library handles), then
         # the capture
-        dev = inputs[0].device
+        dev = inputs[0].device if device is None else device
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
-            body()
-        main.wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool):
-            self.outputs = body()
+        with uncounted():
+            with torch.cuda.stream(side):
+                body()
+            main.wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with uncounted() as self.k1, \
+                    torch.cuda.graph(self.graph, pool=pool):
+                self.outputs = body()
 
-    def __call__(self, *inputs):
+    def run(self, *inputs):
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
         self.graph.replay()
-        return _copy_out(self.outputs)
+        count_replayed(self.k1)
+        return self.outputs
+
+    def __call__(self, *inputs):
+        return _copy_out(self.run(*inputs))
 
 
 class _ADGraph(_Graphed):
@@ -737,7 +781,9 @@ class BlockKKT:
     `_solve_impl`, `_iq_matvec_impl`, `_iq_rmatvec_impl`.
 
     `ad_counts` counts the family-AD passes: graphs captured, captures
-    that failed, passes replayed and passes run eagerly.
+    that failed, passes replayed and passes run eagerly.  `kkt_counts`
+    counts the fused iterations' block-KKT work: graphs captured, keys
+    whose capture failed, iterations replayed and iterations run eagerly.
     """
 
     def __init__(self, nlp, node_of_var, probe_seed=7, x0=None):
@@ -754,8 +800,13 @@ class BlockKKT:
         # `fused.build_fused_alg`; None: every line search eager), in the
         # same pool
         self._ls_graphs = {} if cuda else None
+        # and its block-KKT graphs, three a key (`fused._KKTGraphs`; None:
+        # every iteration's KKT eager)
+        self._kkt_graphs = {} if cuda else None
         self.ad_counts = dict(ad_captures=0, ad_capture_failures=0,
                               ad_replays=0, ad_eager=0)
+        self.kkt_counts = dict(kkt_captures=0, kkt_capture_failures=0,
+                               kkt_replays=0, kkt_eager=0)
 
         # ---- structural sparsity of every family: |J| at two points near
         # the initial trajectory, OR-ed over apps.  Hessian sparsity is

@@ -310,7 +310,11 @@ class ShardedBlockKKT:
     are its own, so the fused loop and the host loop run unchanged.  A
     1-axis mesh, or a 2-axis mesh with an axis of size 1, shards flat over
     its largest axis; a 2-axis ("host", "chip") mesh with both sizes >= 2
-    runs the hierarchical elimination."""
+    runs the hierarchical elimination.  Its fused iterations run the
+    block KKT eagerly, since its factor and solve run the mesh's
+    collectives."""
+
+    _kkt_graphs = None
 
     def __init__(self, base, mesh, axis="seg"):
         self._base = base
@@ -329,7 +333,7 @@ class ShardedBlockKKT:
             self.axis = axis
             self.D = mesh.shape[axis]
         self.nlp, self.bs, self.device = base.nlp, base.bs, base.device
-        self.ad_counts = base.ad_counts
+        self.ad_counts, self.kkt_counts = base.ad_counts, base.kkt_counts
         self._ls_graphs, self._ad_pool = base._ls_graphs, base._ad_pool
         self._perm = base._perm
         self._L = max(2, -(-base.bs.K // self.D))

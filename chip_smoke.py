@@ -2418,23 +2418,20 @@ def phase_default_solve(ast, ck):
 
 
 @contextlib.contextmanager
-def k1_log(kb):
-    """Record the (blocks, width) of every K1 launch the block KKT makes
-    inside the block."""
+def k1_log(ck):
+    """Record the (blocks, width) of every K1 launch made inside the block,
+    replays of CUDA graphs included: the list is filled from the change
+    in `ck.gj_inverse.shapes` when the block ends."""
     shapes = []
-    plain = kb.gj_inverse_inertia
-
-    def spy(D):
-        shapes.append(tuple(D.shape[:2]))
-        return plain(D)
-    kb.gj_inverse_inertia = spy
+    before = dict(ck.gj_inverse.shapes)
     try:
         yield shapes
     finally:
-        kb.gj_inverse_inertia = plain
+        for key, n in sorted(ck.gj_inverse.shapes.items()):
+            shapes += [key] * (n - before.get(key, 0))
 
 
-def run_ensemble(ast, ck, kb, name, ph, perts, ref=None):
+def run_ensemble(ast, ck, name, ph, perts, ref=None):
     """One solve_ensemble on the card; every K1 launch must cover every
     lane, and lane 0 and the lane with the most iterations, solved alone
     through optimize(), must equal their lanes (flag and iterations, the
@@ -2444,7 +2441,7 @@ def run_ensemble(ast, ck, kb, name, ph, perts, ref=None):
     B = len(perts)
     base = ph.makeSolverInput()
     reset_peak_memory()
-    with k1_log(kb) as shapes:
+    with k1_log(ck) as shapes:
         res, n1, nw, secs = counted(ck, lambda: solve_ensemble(
             ph, perturb_states=perts))
     peak = torch.cuda.max_memory_allocated()
@@ -2495,7 +2492,7 @@ def run_ensemble(ast, ck, kb, name, ph, perts, ref=None):
     return n1, nw
 
 
-def phase_ensembles(ast, ck, kb):
+def phase_ensembles(ast, ck):
     """Phase 16: the MultiSpacecraft leg at 512 scenarios (perturbations
     default_rng(7) x 1e-4 about the solved baseline, as the example) and
     the 10,001-node CartPole at 16 scenarios (default_rng(3) x 1e-3 on the
@@ -2516,7 +2513,7 @@ def phase_ensembles(ast, ck, kb):
     rng = np.random.default_rng(7)
     perts = [rng.normal(size=base.shape) * 1e-4 for _ in range(512)]
     out = {"MultiSpacecraft ensemble, 512 scenarios": run_ensemble(
-        ast, ck, kb, "MultiSpacecraft", ph, perts, MSC_512)}
+        ast, ck, "MultiSpacecraft", ph, perts, MSC_512)}
 
     ph = build_cartpole(ast, 5000)
     ph.optimizer.set_PrintLevel(2)
@@ -2525,7 +2522,7 @@ def phase_ensembles(ast, ck, kb):
     rng = np.random.default_rng(3)
     perts = [rng.normal(size=base.shape) * 1e-3 for _ in range(16)]
     out["CartPole ensemble, 10,001 nodes, 16 scenarios"] = run_ensemble(
-        ast, ck, kb, "CartPole 10,001 nodes", ph, perts)
+        ast, ck, "CartPole 10,001 nodes", ph, perts)
     return out
 
 
@@ -2763,8 +2760,7 @@ def phase_astro(ast, ck):
     ph.transcribe()
     torch.cuda.synchronize()
     t_tr = time.perf_counter() - t0
-    from asset_asrl_torch.Solvers import kkt_block as kb
-    with k1_log(kb) as shapes:
+    with k1_log(ck) as shapes:
         flag, n1, nw, secs = counted(ck, ph.optimize)
     traj = np.asarray(ph.returnTraj())
     mass = traj[-1][6] * DIONYSUS_MASS
@@ -2986,11 +2982,10 @@ def example_job(label, size, logdir):
     import contextlib as cl
     import asset_asrl_torch as ast
     from asset_asrl_torch.Solvers import cuda_kernels as ck
-    from asset_asrl_torch.Solvers import kkt_block as kb
     spec = EXAMPLES[label]
     call = spec.full if size == "full" else spec.test
     reset_peak_memory()
-    with k1_log(kb) as shapes, \
+    with k1_log(ck) as shapes, \
             open(os.path.join(logdir, label + ".log"), "w") as log, \
             cl.redirect_stdout(log):
         (cited, solves, _), n1, nw, secs = counted(
@@ -3113,7 +3108,7 @@ def phase_distribution(ast, ck, kb, nsegs=5000, formation=256, ens_segs=128,
             prob.setKKTBackend("sharded", mesh=mesh)
         prob.transcribe()
         calls = dict(mesh.calls) if mesh is not None else None
-        with k1_log(kb) as shapes:
+        with k1_log(ck) as shapes:
             flag, n1, nw, secs = counted(ck, prob.optimize)
         peak = torch.cuda.max_memory_allocated() - held if cuda else 0
         it = opt.LastIterNum
@@ -3344,7 +3339,7 @@ def main(argv=()):
         ast, ck, d3_phases, obj_5000)
     del d3_phases
     adaptive.update(phase_default_solve(ast, ck))
-    adaptive.update(phase_ensembles(ast, ck, kb))
+    adaptive.update(phase_ensembles(ast, ck))
     for new_phase in (phase_vf_tail, phase_astro, phase_solvers_tail):
         t0 = time.perf_counter()
         adaptive.update(new_phase(ast, ck))
